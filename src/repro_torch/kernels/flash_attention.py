@@ -1,0 +1,79 @@
+"""Causal GQA flash attention with an optional sliding window.
+
+``flash_attention(q, k, v, window=0)`` has the signature of the JAX
+package's Pallas kernel: q (B, S, H, D) pre-scaled, k and v (B, S, Kv, D),
+out (B, S, H, D) in q's dtype; query head h reads kv head h // (H // Kv).
+
+On a CUDA tensor it launches the hand-written kernel in
+``csrc/flash_attention.cu`` or raises.  On a CPU tensor it runs the plain
+version, ``flash_attention_plain``, which computes the same function in
+float32.  ``flash_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import library
+from .ref import attention_ref
+
+HEAD_DIMS = (32, 64, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_plain(q, k, v, window: int = 0):
+    """The kernel's function in plain PyTorch: float32 throughout, the
+    output cast to q's dtype."""
+    return attention_ref(q.float(), k.float(), v.float(), window).to(q.dtype)
+
+
+def _lib():
+    lib = library("flash_attention")
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _aligned(x):
+    """Contiguous with a 16-byte-aligned start (the kernel's vector loads)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def flash_attention(q, k, v, window: int = 0):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    if k.shape != (b, s, kvh, d) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}; takes float32 or bfloat16")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
+    if kvh == 0 or h % kvh or window < 0:
+        raise ValueError(f"flash_attention: heads {h}/{kvh}, window {window}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k and v on different devices")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty_like(q)
+    fn = _lib()
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             b, s, h, kvh, d, int(window), _DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"cudaError {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
