@@ -21,7 +21,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"flash_attention": "flash_attention.cu"}
+SOURCES = {"flash_attention": "flash_attention.cu",
+           "mlstm_chunk": "mlstm_chunk.cu", "slstm_step": "slstm_step.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

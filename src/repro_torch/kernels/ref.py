@@ -1,7 +1,11 @@
-"""Plain PyTorch oracles for the port's kernels."""
+"""Plain PyTorch oracles for the port's kernels (the attention oracle
+here; the mLSTM ones re-export the model layer's reference forms)."""
 from __future__ import annotations
 
 import torch
+
+from ..models.blockwise import mlstm_chunked as _mlstm_chunked
+from ..models.recurrent import mlstm_parallel_ref as _mlstm_parallel
 
 
 def attention_ref(q, k, v, window: int = 0):
@@ -20,3 +24,12 @@ def attention_ref(q, k, v, window: int = 0):
     p = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkqsl,blkd->bskqd", p, v)
     return out.reshape(b, s, h, d)
+
+
+def mlstm_ref(q, k, v, i_pre, f_pre):
+    """Quadratic-form mLSTM."""
+    return _mlstm_parallel(q, k, v, i_pre, f_pre)
+
+
+def mlstm_chunked_ref(q, k, v, i_pre, f_pre, chunk: int = 256):
+    return _mlstm_chunked(q, k, v, i_pre, f_pre, chunk=chunk)

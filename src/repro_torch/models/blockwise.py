@@ -1,9 +1,16 @@
-"""Memory-efficient full-sequence attention in plain PyTorch: the plain
-path of ``layers.attention`` at S >= 2048 (the hand-written kernel in
-``repro_torch.kernels`` is the fast version of the same math)."""
+"""Memory-efficient full-sequence primitives in plain PyTorch (the
+hand-written kernels in ``repro_torch.kernels`` are the fast versions of
+the same math).
+
+- ``blockwise_attention``: the plain path of ``layers.attention`` at
+  S >= 2048: online-softmax attention that never materializes (S, S).
+- ``mlstm_chunked``: chunkwise-parallel mLSTM -- quadratic only within a
+  chunk, recurrent (C, n, m) state across chunks.
+"""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -56,3 +63,60 @@ def blockwise_attention(q, k, v, *, window: int = 0, q_chunk: int = 512,
         outs.append(out.to(q.dtype))
     # (nq, B, Kv, Q, qc, D) -> (B, S, H, D)
     return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, s, h, d)
+
+
+def mlstm_chunked(q, k, v, i_pre, f_pre, *, chunk: int = 256,
+                  return_final: bool = False):
+    """Chunkwise-parallel mLSTM (matches ``mlstm_parallel_ref``).
+
+    q, k, v: (B,S,H,D); i_pre, f_pre: (B,S,H).  Returns (B,S,H,D) in q's
+    dtype, or ((B,S,H,D), (C, n, m)) when ``return_final`` (prefill ->
+    decode), with C (B,H,D,D), n (B,H,D) and m (B,H) in float32."""
+    b, s, h, d = q.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} not a multiple of the chunk {chunk}")
+    scale = d ** -0.5
+    dev = q.device
+    it_all = i_pre.float()
+    lf_all = F.logsigmoid(f_pre.float())
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=dev))
+    C = torch.zeros((b, h, d, d), device=dev)
+    n = torch.zeros((b, h, d), device=dev)
+    m = torch.full((b, h), NEG_INF, device=dev)
+    outs = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        qt, kt, vt = q[:, sl], k[:, sl], v[:, sl]        # (B,L,H,D)
+        it, lft = it_all[:, sl], lf_all[:, sl]           # (B,L,H)
+        cum = torch.cumsum(lft, dim=1)                   # inclusive
+        g = cum[:, -1]                                   # (B,H) total decay
+        # intra-chunk log decay matrix: cum_i - cum_j + i_j for j <= i
+        logd = cum[:, :, None, :] - cum[:, None, :, :] + it[:, None, :, :]
+        logd = logd.masked_fill(~tri[None, :, :, None], float("-inf"))
+        m_intra = torch.amax(logd, dim=2)                # (B,L,H)
+        m_inter = cum + m[:, None, :]                    # (B,L,H)
+        m_i = torch.clamp(torch.maximum(m_intra, m_inter), min=NEG_INF)
+        dmat = torch.exp(logd - m_i[:, :, None, :])
+        scores = torch.einsum("blhd,bjhd->bljh", qt, kt) * scale
+        cmat = scores.float() * dmat                     # (B,L,L,H)
+        inter_w = torch.exp(m_inter - m_i)               # (B,L,H)
+        q32 = qt.float() * scale
+        h_inter = torch.einsum("blhk,bhkv->blhv", q32, C) * inter_w[..., None]
+        n_inter = torch.einsum("blhk,bhk->blh", q32, n) * inter_w
+        h_intra = torch.einsum("bljh,bjhv->blhv", cmat, vt.float())
+        n_total = torch.sum(cmat, dim=2) + n_inter
+        denom = torch.maximum(torch.abs(n_total), torch.exp(-m_i))
+        outs.append(((h_intra + h_inter) / denom[..., None]).to(q.dtype))
+        # ---- state update
+        m_next = torch.maximum(g + m, torch.amax(it + g[:, None] - cum, dim=1))
+        decay = torch.exp(g + m - m_next)                # (B,H)
+        w_in = torch.exp(it + g[:, None] - cum - m_next[:, None])  # (B,L,H)
+        k32 = kt.float()
+        C = decay[..., None, None] * C + torch.einsum(
+            "blh,blhk,blhv->bhkv", w_in, k32, vt.float())
+        n = decay[..., None] * n + torch.einsum("blh,blhk->bhk", w_in, k32)
+        m = m_next
+    out = torch.cat(outs, dim=1)
+    return (out, (C, n, m)) if return_final else out

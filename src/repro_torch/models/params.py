@@ -60,6 +60,18 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn, tree, prefix=()):
+    """``tree_map`` whose ``fn`` also gets the leaf's path (a tuple of
+    str keys, as ``tree_leaves_with_paths`` gives it)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, prefix + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, prefix + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
 def _materialize(spec: P, gen: torch.Generator, dtype, device):
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)

@@ -1,15 +1,16 @@
-"""Decoder transformer for the attention families (``attn`` / ``swa``
-mixers with a dense FFN).
+"""Composable decoder covering the ported architecture families: the
+attention families (``attn`` / ``swa`` mixers with a dense FFN) and
+xLSTM (``mlstm`` / ``slstm`` mixers, no FFN).
 
 Layers follow ``cfg.block_pattern``; repeats of the pattern run as a
 Python loop over params stacked along a leading dim (the JAX package's
 ``lax.scan``), with an unrolled remainder, so parameter and state trees
 keep the JAX package's layout.  Supports the full-sequence forward,
-serving prefill (last-position logits plus decode-ready KV caches) and
-single-token decode against those caches.
+serving prefill (last-position logits plus a decode-ready state: KV
+caches or recurrent states) and single-token decode against that state.
 
 ``opts=None`` means ``kernel_opts(<device of the params>)``: on CUDA the
-full-sequence attention runs the hand-written flash-attention kernel.
+full-sequence attention, mLSTM and sLSTM run the hand-written kernels.
 An explicit ``opts={}`` asks for the plain path.
 """
 from __future__ import annotations
@@ -20,22 +21,22 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.ops import kernel_opts
-from .config import ATTN, MLSTM, RGLRU, SLSTM, SWA, ModelConfig
+from .config import ATTN, MLSTM, RECURRENT, RGLRU, SLSTM, SWA, ModelConfig
 from .layers import (attention, attention_spec, attn_cache_spec, ffn,
                      ffn_spec, rmsnorm, rmsnorm_spec)
-from .params import P, init_params, stack_specs, tree_map
+from .params import P, init_params, stack_specs, tree_map, tree_map_with_path
+from .recurrent import (mlstm_block, mlstm_block_spec, mlstm_state_spec,
+                        slstm_block, slstm_block_spec, slstm_state_spec)
 
 _NOT_PORTED = {
     RGLRU: "the RG-LRU block is not ported yet (ROADMAP A9)",
-    MLSTM: "the mLSTM block is not ported yet (ROADMAP A2)",
-    SLSTM: "the sLSTM block is not ported yet (ROADMAP A2)",
 }
 
 
 def _check_kind(cfg: ModelConfig, kind: str):
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
-    if kind not in (ATTN, SWA):
+    if kind not in (ATTN, SWA, MLSTM, SLSTM):
         raise ValueError(kind)
     if cfg.is_moe:
         raise NotImplementedError(
@@ -44,9 +45,13 @@ def _check_kind(cfg: ModelConfig, kind: str):
 
 # ------------------------------------------------------------------ specs
 
+_MIXER_SPECS = {ATTN: attention_spec, SWA: attention_spec,
+                MLSTM: mlstm_block_spec, SLSTM: slstm_block_spec}
+
+
 def block_spec(cfg: ModelConfig, kind: str):
     _check_kind(cfg, kind)
-    spec: Dict[str, Any] = {"mixer": attention_spec(cfg)}
+    spec: Dict[str, Any] = {"mixer": _MIXER_SPECS[kind](cfg)}
     if cfg.d_ff:
         spec["ffn"] = ffn_spec(cfg)
     return spec
@@ -81,6 +86,10 @@ def init_model(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 def _block_cache_spec(cfg: ModelConfig, kind: str, batch: int, length: int,
                       dtype):
     _check_kind(cfg, kind)
+    if kind == MLSTM:
+        return mlstm_state_spec(cfg, batch, dtype)
+    if kind == SLSTM:
+        return slstm_state_spec(cfg, batch, dtype)
     return attn_cache_spec(cfg, batch, length, dtype)
 
 
@@ -103,25 +112,27 @@ def decode_state_spec(cfg: ModelConfig, batch: int, length: int,
 
 
 def state_batch_axes(cfg: ModelConfig):
-    """Batch axis of every decode-state leaf: 1 under a stacked (scan)
-    group's layer dim, 0 otherwise; ``pos`` is per-row at axis 0."""
-    groups = []
-    for mode, pattern, _ in cfg.layer_plan():
-        ax = 1 if mode == "scan" else 0
-        groups.append({f"pos{i}_{kind}": {"k": ax, "v": ax}
-                       for i, kind in enumerate(pattern)})
+    """Batch axis of every decode-state leaf (KV caches and recurrent
+    states alike): 1 under a stacked (scan) group's layer dim, 0
+    otherwise; ``pos`` is per-row at axis 0."""
+    spec = decode_state_spec(cfg, 1, 1)
+    groups = [tree_map(lambda _, ax=int(mode == "scan"): ax, g)
+              for (mode, _, _), g in zip(cfg.layer_plan(), spec["layers"])]
     return {"layers": groups, "pos": 0}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, length: int,
                       dtype=torch.bfloat16, per_row_pos: bool = False,
                       device="cuda"):
-    """Zero-initialized decode state on ``device``.  per_row_pos=True
+    """Zero-initialized decode state on ``device``, with the recurrent
+    stabilizers (every leaf named ``m``) at -1e30.  per_row_pos=True
     gives ``pos`` shape (batch,): each slot tracks its own position."""
     dev = resolve_device(device)
     spec = decode_state_spec(cfg, batch, length, dtype)
-    layers = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
-                                            device=dev), spec["layers"])
+    layers = tree_map_with_path(
+        lambda path, s: torch.full(s.shape, -1e30 if path[-1] == "m" else 0,
+                                   dtype=s.dtype, device=dev),
+        spec["layers"])
     pos = torch.zeros((batch,) if per_row_pos else (), dtype=torch.int32,
                       device=dev)
     return {"layers": layers, "pos": pos}
@@ -134,10 +145,19 @@ def _block_apply(p, x, *, kind, cfg: ModelConfig, cache=None, positions=None,
     _check_kind(cfg, kind)
     opts = opts or {}
     h = rmsnorm(p["mixer"]["norm"], x, cfg.norm_eps)
-    window = cfg.window_size if kind == SWA else 0
-    y, nc = attention(p["mixer"], h, cfg, window=window, cache=cache,
-                      positions=positions, pos=pos,
-                      attn_fn=opts.get("attn_fn"), return_cache=prefill)
+    if kind == MLSTM:
+        y, nc = mlstm_block(p["mixer"], h, cfg, state=cache,
+                            parallel_fn=opts.get("mlstm_fn"),
+                            return_state=prefill)
+    elif kind == SLSTM:
+        y, nc = slstm_block(p["mixer"], h, cfg, state=cache,
+                            return_state=prefill,
+                            slstm_fn=opts.get("slstm_fn"))
+    else:
+        window = cfg.window_size if kind == SWA else 0
+        y, nc = attention(p["mixer"], h, cfg, window=window, cache=cache,
+                          positions=positions, pos=pos,
+                          attn_fn=opts.get("attn_fn"), return_cache=prefill)
     x = x + y
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in p:
@@ -151,9 +171,10 @@ def _run_groups(params, cfg: ModelConfig, x, *, caches=None, positions=None,
     """Run all layer groups.  Returns (x, new_caches, aux).
 
     prefill=True: caches are None on input but every block *returns* its
-    decode-ready KV cache.  With caches (decode) each block writes into
-    its slot of the (stacked) cache in place, so the input caches are
-    returned as the new ones."""
+    decode-ready state.  With caches (decode) an attention block writes
+    into its slot of the (stacked) KV cache in place, so the input cache
+    is returned as the new one; a recurrent block returns new state
+    tensors, stacked here like the params."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_groups = []
     for gi, (mode, pattern, n) in enumerate(cfg.layer_plan()):
@@ -171,19 +192,23 @@ def _run_groups(params, cfg: ModelConfig, x, *, caches=None, positions=None,
                     cache=c, positions=positions, pos=pos, opts=opts,
                     prefill=prefill)
                 aux_total = aux_total + a
-                if prefill:
+                if prefill or (gcaches is not None and kind in RECURRENT):
                     collected[key].append(nc)
-        if gcaches is not None:
-            new_groups.append(gcaches)
-        elif prefill:
-            if mode == "unroll":
-                new_groups.append({k: v[0] for k, v in collected.items()})
-            else:
-                new_groups.append({k: {name: torch.stack([c[name] for c in v])
-                                       for name in v[0]}
-                                   for k, v in collected.items()})
-        else:
+        if gcaches is None and not prefill:
             new_groups.append(None)
+            continue
+        new_g = {}
+        for i, kind in enumerate(pattern):
+            key = f"pos{i}_{kind}"
+            if not collected[key]:           # KV cache, updated in place
+                new_g[key] = gcaches[key]
+            elif mode == "unroll":
+                new_g[key] = collected[key][0]
+            else:
+                new_g[key] = {name: torch.stack([c[name]
+                                                 for c in collected[key]])
+                              for name in collected[key][0]}
+        new_groups.append(new_g)
     return x, new_groups, aux_total
 
 

@@ -110,8 +110,8 @@ class ContinuousBatchingEngine:
                 self._reset_slot_state(b)
 
     def _reset_slot_state(self, b: int):
-        """Clear slot b's recurrent state (KV entries are masked by pos,
-        so k and v stay; attention-only models carry nothing else)."""
+        """Clear slot b's recurrent state, with the stabilizers ``m`` at
+        -1e30 (KV entries are masked by pos, so k and v stay)."""
         leaves = tree_leaves_with_paths(self.state["layers"])
         axes = tree_leaves_with_paths(self._batch_axis["layers"])
         for (path, leaf), (_, ax) in zip(leaves, axes):
@@ -128,7 +128,8 @@ class ContinuousBatchingEngine:
             # frozen slots keep their previous state; a leaf the decode
             # step updated in place (the KV caches) is already spliced:
             # a frozen slot's write at its own pos is masked until that
-            # slot is reused, and then overwritten before it is read
+            # slot is reused, and then overwritten before it is read.
+            # Recurrent leaves come back as new tensors: spliced here
             if new is old or new.ndim == 0:
                 return new
             shape = [1] * new.ndim

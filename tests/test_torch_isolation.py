@@ -13,6 +13,8 @@ import torch
 import _torch_port  # noqa: F401  (thread cap)
 from repro_torch.configs import concrete_batch, get_config
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+from repro_torch.kernels.slstm_step import slstm_step_scan
 from repro_torch.kernels.ops import kernel_opts
 from repro_torch.models.params import params_from_numpy, params_to_numpy
 from repro_torch.models.transformer import (init_decode_state, init_model,
@@ -88,3 +90,15 @@ def test_flash_attention_refuses_other_devices():
     q = torch.empty(1, 8, 2, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("kernel", ["mlstm_chunk", "slstm_step_scan"])
+def test_recurrent_kernels_refuse_other_devices(kernel):
+    x = torch.empty(1, 8, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        if kernel == "mlstm_chunk":
+            mlstm_chunk(x, x, x, x[..., 0], x[..., 0])
+        else:
+            r = torch.empty(2, 32, 32, device="meta")
+            slstm_step_scan(torch.empty(1, 8, 2, 32, 4, device="meta"),
+                            r, r, r, r)

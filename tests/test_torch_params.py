@@ -26,9 +26,10 @@ from repro_torch.models.transformer import init_model, model_spec
 
 
 def _ported(cfg):
-    """The attention families with a dense FFN are ported; the rest
-    raise NotImplementedError naming their ROADMAP item."""
-    return cfg.moe is None and all(k in ("attn", "swa")
+    """The attention families with a dense FFN and xLSTM (mLSTM and
+    sLSTM mixers) are ported; the rest raise NotImplementedError naming
+    their ROADMAP item."""
+    return cfg.moe is None and all(k in ("attn", "swa", "mlstm", "slstm")
                                    for k in cfg.block_pattern)
 
 
