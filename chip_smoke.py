@@ -13,7 +13,11 @@ weights from a seed, in bf16:
 - xlstm-125m at full width: the forward with the mLSTM-chunk and
   sLSTM-step kernels in all 12 layers, then serving as the reference
   does it (prefill on the plain recurrences, greedy decode from its
-  state, the engine answering 8 requests).
+  state, the engine answering 8 requests);
+- recurrentgemma-2b at full width: a batched prefill with the RG-LRU
+  scan kernel in its 18 recurrent layers and flash attention in its 8
+  window-2048 layers, greedy decode from the prefill's state, and the
+  engine answering 8 requests.
 
 Every phase prints one JSON line and raises on failure.  The line
 before the last lists every ported kernel; the last line is
@@ -37,6 +41,8 @@ MLSTM_TOL = {"float32": 2e-3, "bfloat16": 5e-2}   # tests/test_kernels.py
 # sLSTM: fp32 as tests/test_kernels.py; bf16 outputs are the same fp32
 # state rounded once, so one bf16 step of |h| <= 1
 SLSTM_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2 ** -8, 0.0)}
+RGLRU_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
+RGLRU_RTOL = 1e-2
 
 
 def emit(phase, **kv):
@@ -217,6 +223,36 @@ def slstm_case(kern, plain, gen, b, s, h, d, dtype):
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def rglru_bound(b, s, r, dtype_name, itemsize):
+    """a and b read once and h written once; one multiply-add (two
+    operations) a step and channel."""
+    return roofline(2.0 * b * s * r, 3.0 * itemsize * b * s * r,
+                    PEAK_FLOPS[dtype_name])
+
+
+def rglru_case(kern, plain, gen, b, s, r, dtype):
+    """The RG-LRU kernel against its plain version on the inputs of
+    tests/test_kernels.py (a in (0.8, 1), b ~ N(0, 0.1^2))."""
+    import torch
+    rnd = lambda: torch.randn(b, s, r, generator=gen, device="cuda")
+    a = (torch.sigmoid(rnd()) * 0.2 + 0.8).to(dtype)
+    x = (rnd() * 0.1).to(dtype)
+    name = str(dtype).replace("torch.", "")
+    n0 = kern.launches
+    out = kern(a, x)
+    torch.cuda.synchronize()
+    tol = RGLRU_TOL[name]
+    max_err = check_close("rglru_scan", (b, s, r), name, out,
+                          plain(a, x).float(), tol, RGLRU_RTOL)
+    bound_ms, bound_by = rglru_bound(b, s, r, name, a.element_size())
+    return {"kernel": "rglru_scan", "shape": [b, s, r], "dtype": name,
+            "tol": [tol, RGLRU_RTOL], "max_err": max_err,
+            "kernel_ms": time_ms(lambda: kern(a, x)),
+            "launches": kern.launches - n0,
+            "plain_ms": time_ms(lambda: plain(a, x)),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def small_check(cfg):
     """At fp32 on a reduced config, B 2, S 8 (a size where random-init
     models are not chaotic): the kernel path against the plain path end
@@ -256,6 +292,45 @@ def comparing(errs, kern, plain, atol=None, rtol=None):
             errs.append(float((diff / (atol + rtol * ref.abs())).max()))
         return out
     return fn
+
+
+def comparing_attention(errs, kern, plain, tol):
+    """``kern`` (flash attention), appending to ``errs`` on every call
+    its worst elementwise |out - ref| / (tol * (P|V| + |ref|)) against
+    ``plain``, at most 1 inside the bound.  P|V|, the plain attention of
+    |v|, is the scale of each output's error: the kernel rounds the
+    probabilities P to bf16 before P V, an error of at most
+    2^-9 * sum_j p_j |v_j| in each output, where |ref| = |sum_j p_j v_j|
+    can be far smaller (the model's v are not unit-scale as the kernel
+    cases' are)."""
+    def fn(q, k, v, window):
+        out = kern(q, k, v, window)
+        ref = plain(q, k, v, window).float()
+        scale = plain(q, k, v.abs(), window).float()
+        diff = (out.float() - ref).abs()
+        errs.append(float((diff / (tol * (scale + ref.abs()) + 1e-30)).max()))
+        return out
+    return fn
+
+
+def seeded_state(cfg, pstate, batch, seq, length):
+    """A decode state of ``length`` holding the prefill's ``pstate``:
+    KV caches along their sequence axis, recurrent leaves whole."""
+    import torch
+    from repro_torch.models.transformer import (init_decode_state,
+                                                state_batch_axes)
+    state = init_decode_state(cfg, batch, length, dtype=torch.bfloat16,
+                              device="cuda")
+    axes = state_batch_axes(cfg)["layers"]
+    for gi, group in enumerate(pstate["layers"]):
+        for key, cache in group.items():
+            for leaf, src_t in cache.items():
+                dst = state["layers"][gi][key][leaf]
+                if dst.shape != src_t.shape:
+                    dst = dst.narrow(axes[gi][key][leaf] + 1, 0, seq)
+                dst.copy_(src_t)
+    state["pos"] = torch.tensor(seq, dtype=torch.int32, device="cuda")
+    return state
 
 
 def greedy(cfg, params, logits, state, steps):
@@ -463,6 +538,150 @@ def xlstm_phases(gen):
                  "src/repro/kernels/slstm_step.py:24", main_s)]
 
 
+def rgemma_phases(gen):
+    """The recurrentgemma slice: the RG-LRU kernel against its plain
+    version, flash attention at the model's shape, a small end-to-end
+    check, the full-width prefill through both kernels, decode from its
+    state and the engine.  Returns the kernels line's entries for flash
+    attention at this model's shape and for the RG-LRU scan."""
+    import torch
+    from repro_torch.configs import concrete_batch, get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_plain
+    from repro_torch.models.params import param_count
+    from repro_torch.models.transformer import (init_model, model_spec,
+                                                prefill_forward)
+
+    cfg = get_config("recurrentgemma-2b")
+    r, hd = cfg.resolved_d_rnn, cfg.resolved_head_dim
+
+    # ------------------------------------------------- RG-LRU kernel
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        # the shapes of tests/test_kernels.py, then ragged S and R (odd
+        # R takes the kernel's one-channel-a-thread path)
+        for s, rr in [(256, 128), (512, 256), (128, 384), (200, 200),
+                      (37, 77)]:
+            cases.append(rglru_case(rglru_scan, rglru_scan_plain, gen,
+                                    2, s, rr, dtype))
+    main_r = rglru_case(rglru_scan, rglru_scan_plain, gen, PREFILL_B,
+                        PREFILL_S, r, torch.bfloat16)
+    cases.append(main_r)
+    emit("rglru_kernels", cases=cases)
+
+    # --------------------------------- flash attention at this shape
+    main_f = kernel_case(flash_attention, flash_attention_plain, gen,
+                         PREFILL_B, PREFILL_S, cfg.num_heads,
+                         cfg.num_kv_heads, hd, cfg.window_size,
+                         torch.bfloat16, 2e-2)
+    emit("rgemma_flash", case=main_f)
+
+    # ---------------------------------------------------- small check
+    # 3 layers (RG-LRU, RG-LRU, window-32 attention), both kernels
+    small = cfg.reduced()
+    emit("rgemma_check", config=small.name, **small_check(small))
+
+    # ------------------------------------------------------- prefill
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model_spec(cfg))
+    if not 2.4e9 <= n_params <= 3.2e9:
+        raise AssertionError(f"recurrentgemma param_count {n_params}")
+    batch = concrete_batch(cfg, PREFILL_B, PREFILL_S, device="cuda")
+    prefill_forward(params, cfg, batch)          # warm-up (cuBLAS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = rglru_scan.launches = 0
+    t0 = time.perf_counter()
+    logits, pstate = prefill_forward(params, cfg, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {"rglru_scan": rglru_scan.launches,
+                "flash_attention": flash_attention.launches}
+    kinds = cfg.layer_types()
+    expected = {"rglru_scan": kinds.count("rglru"),
+                "flash_attention": kinds.count("swa")}
+    if launches != expected or expected != {"rglru_scan": 18,
+                                            "flash_attention": 8}:
+        raise AssertionError(f"recurrentgemma prefill launches {launches}, "
+                             f"expected {expected}")
+    if logits.shape != (PREFILL_B, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("recurrentgemma prefill logits not finite / "
+                             "wrong shape")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # every layer's kernel output against its plain version on the
+    # model's own activations, elementwise: the RG-LRU to the kernel
+    # cases' bf16 bound; flash attention as comparing_attention says
+    layer_err = {"rglru_scan": [], "flash_attention": []}
+    prefill_forward(params, cfg, batch, opts={
+        "rglru_scan": comparing(layer_err["rglru_scan"], rglru_scan,
+                                rglru_scan_plain,
+                                atol=RGLRU_TOL["bfloat16"], rtol=RGLRU_RTOL),
+        "attn_fn": comparing_attention(layer_err["flash_attention"],
+                                       flash_attention,
+                                       flash_attention_plain, 2e-2)})
+    for name, errs in layer_err.items():
+        if len(errs) != expected[name] or max(errs) > 1.0:
+            raise AssertionError(f"{name} per-layer error {errs}, bound 1")
+    emit("rgemma_prefill", config=cfg.name, param_count=n_params,
+         batch=PREFILL_B, seq=PREFILL_S, init_s=init_s, prefill_s=prefill_s,
+         prefill_tokens_per_s=PREFILL_B * PREFILL_S / prefill_s,
+         launches=launches, layer_err=layer_err,
+         layer_err_means={
+             "rglru_scan": f"max |out-ref|/({RGLRU_TOL['bfloat16']} + "
+                           f"{RGLRU_RTOL}|ref|)",
+             "flash_attention": "max |out-ref|/(2e-2 (P|V| + |ref|))"},
+         peak_mem_gb=peak_gb)
+
+    # ------------------------------------------------------ generate
+    state = seeded_state(cfg, pstate, PREFILL_B, PREFILL_S,
+                         PREFILL_S + GEN_TOKENS)
+    del pstate
+    toks, gen_s = greedy(cfg, params, logits, state, GEN_TOKENS - 1)
+    emit("rgemma_generate", tokens=GEN_TOKENS, batch=PREFILL_B,
+         decode_steps=GEN_TOKENS - 1, seconds=gen_s,
+         tokens_per_s=PREFILL_B * (GEN_TOKENS - 1) / gen_s,
+         first_tokens=toks[0, :8].tolist())
+    del state
+
+    # --------------------------------------------------------- serve
+    serve_s, served = serve_requests(cfg, params, seed=3)
+    emit("rgemma_serve", seconds=serve_s, **served)
+    del params, logits
+
+    n_swa = expected["flash_attention"]
+    flash_line = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:28",
+        "launches": launches["flash_attention"],
+        "max_abs_err": main_f["max_err"],
+        "ms": n_swa * main_f["kernel_ms"],
+        "plain_ms": n_swa * main_f["plain_ms"],
+        "bound_ms": n_swa * main_f["bound_ms"],
+        "bound_by": main_f["bound_by"],
+        "library_ms": n_swa * main_f["library_ms"],
+        "per": f"one recurrentgemma-2b prefill: {n_swa} window-"
+               f"{cfg.window_size} launches at B {PREFILL_B}, S {PREFILL_S}, "
+               f"H {cfg.num_heads}, Kv {cfg.num_kv_heads}, D {hd}, bf16"}
+    rglru_line = {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:22",
+        "launches": launches["rglru_scan"],
+        "max_abs_err": main_r["max_err"], "ms": main_r["kernel_ms"],
+        "plain_ms": main_r["plain_ms"], "bound_ms": main_r["bound_ms"],
+        "bound_by": main_r["bound_by"], "library_ms": None,
+        "per": f"one launch at B {PREFILL_B}, S {PREFILL_S}, R {r}, bf16 "
+               f"({launches['rglru_scan']} a recurrentgemma-2b prefill)"}
+    return [flash_line, rglru_line]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -478,9 +697,8 @@ def main():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.models.params import param_count
-    from repro_torch.models.transformer import (init_decode_state, init_model,
-                                                model_spec, prefill_forward,
-                                                state_batch_axes)
+    from repro_torch.models.transformer import (init_model, model_spec,
+                                                prefill_forward)
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -567,16 +785,8 @@ def main():
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
     # ------------------------------------------------------- generate
-    state = init_decode_state(cfg, PREFILL_B, PREFILL_S + GEN_TOKENS,
-                              dtype=torch.bfloat16, device="cuda")
-    axes = state_batch_axes(cfg)["layers"]
-    for gi, group in enumerate(pstate["layers"]):
-        for key, cache in group.items():
-            for leaf, src_t in cache.items():
-                seq_ax = axes[gi][key][leaf] + 1
-                state["layers"][gi][key][leaf].narrow(
-                    seq_ax, 0, PREFILL_S).copy_(src_t)
-    state["pos"] = torch.tensor(PREFILL_S, dtype=torch.int32, device="cuda")
+    state = seeded_state(cfg, pstate, PREFILL_B, PREFILL_S,
+                         PREFILL_S + GEN_TOKENS)
     del pstate
     toks, gen_s = greedy(cfg, params, logits, state, GEN_TOKENS - 1)
     emit("generate", tokens=GEN_TOKENS, batch=PREFILL_B,
@@ -619,7 +829,12 @@ def main():
 
     # ---------------------------------------------------------- xLSTM
     xlstm_lines = xlstm_phases(gen)
-    print(json.dumps({"kernels": [flash_line] + xlstm_lines}), flush=True)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- recurrentgemma
+    rgemma_lines = rgemma_phases(gen)
+    print(json.dumps({"kernels": [flash_line] + xlstm_lines
+                      + rgemma_lines}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """Plain PyTorch oracles for the port's kernels (the attention oracle
-here; the mLSTM ones re-export the model layer's reference forms)."""
+here; the RG-LRU and mLSTM ones re-export the model layer's reference
+forms)."""
 from __future__ import annotations
 
 import torch
 
 from ..models.blockwise import mlstm_chunked as _mlstm_chunked
 from ..models.recurrent import mlstm_parallel_ref as _mlstm_parallel
+from ..models.recurrent import rglru_scan_ref as _rglru_scan
 
 
 def attention_ref(q, k, v, window: int = 0):
@@ -24,6 +26,11 @@ def attention_ref(q, k, v, window: int = 0):
     p = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkqsl,blkd->bskqd", p, v)
     return out.reshape(b, s, h, d)
+
+
+def rglru_scan_ref(a, b):
+    """h_t = a_t h_{t-1} + b_t over the sequence, in the inputs' dtype."""
+    return _rglru_scan(a, b)
 
 
 def mlstm_ref(q, k, v, i_pre, f_pre):

@@ -1,5 +1,6 @@
-"""Recurrent mixer blocks of xLSTM: mLSTM (matrix memory) and sLSTM
-(scalar memory), with the causal depthwise conv they share.
+"""Recurrent mixer blocks: RG-LRU (Griffin / RecurrentGemma), and xLSTM's
+mLSTM (matrix memory) and sLSTM (scalar memory), with the causal
+depthwise conv they share.
 
 Each block exposes ``<block>_spec(cfg)``, a full-sequence apply (train /
 prefill) and a single-token decode apply carrying a small recurrent
@@ -51,6 +52,83 @@ def _conv_tail(p, x):
     state that decode continues from."""
     w = p["conv"]["w"].shape[0]
     return F.pad(x, (0, 0, w - 1, 0))[:, -(w - 1):]
+
+
+# ----------------------------------------------------------------- RG-LRU
+
+_RGLRU_C = 8.0
+
+
+def rglru_block_spec(cfg: ModelConfig):
+    d, r = cfg.d_model, cfg.resolved_d_rnn
+    return {
+        "norm": rmsnorm_spec(d),
+        "w_gelu": P((d, r), ("embed", "rnn")),
+        "w_branch": P((d, r), ("embed", "rnn")),
+        "conv": conv1d_spec(cfg.conv_width, r),
+        "w_rec_gate": P((r, r), ("rnn", "rnn_in")),
+        "w_in_gate": P((r, r), ("rnn", "rnn_in")),
+        "lam": P((r,), ("rnn",), init="const", scale=4.0),  # a=sigmoid(4)≈.982
+        "w_out": P((r, d), ("rnn", "embed")),
+    }
+
+
+def _rglru_coeffs(p, u):
+    """u: (..., r) post-conv branch.  Returns (a, b) of h = a*h_prev + b."""
+    r_gate = torch.sigmoid(u @ p["w_rec_gate"])
+    i_gate = torch.sigmoid(u @ p["w_in_gate"])
+    log_a = -_RGLRU_C * r_gate * F.softplus(p["lam"])  # log sigmoid(lam)^(c*r)
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) \
+        * (i_gate * u)
+    return a, b
+
+
+def rglru_scan_ref(a, b):
+    """h_t = a_t h_{t-1} + b_t over axis 1 (seq), h_0 = 0, in the inputs'
+    dtype: a log-step (Hillis-Steele) scan, each pass combining every
+    element with the one ``shift`` steps before it.  No step divides by a
+    running product of a, which underflows within a few hundred steps."""
+    s = a.shape[1]
+    shift = 1
+    while shift < s:
+        a_prev = F.pad(a[:, :-shift], (0, 0, shift, 0), value=1.0)
+        b_prev = F.pad(b[:, :-shift], (0, 0, shift, 0))
+        a, b = a * a_prev, a * b_prev + b
+        shift *= 2
+    return b
+
+
+def rglru_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
+                scan_fn=None, return_state: bool = False):
+    """Griffin recurrent block.  x: (B,S,d).  Returns (y, new_state).
+
+    state=None: full sequence through ``scan_fn`` (a, b) -> h, by default
+    ``rglru_scan_ref``; with ``return_state`` the decode state is h's
+    last step (float32) and the conv tail.  state=dict: one decode step,
+    x is (B, 1, d), h carried in float32."""
+    gelu_branch = F.gelu(x @ p["w_gelu"], approximate="tanh")
+    u = x @ p["w_branch"]
+    if state is None:
+        a, b = _rglru_coeffs(p, conv1d(p["conv"], u))
+        h = (scan_fn or rglru_scan_ref)(a, b)
+        y = (h * gelu_branch) @ p["w_out"]
+        if return_state:
+            return y, {"h": h[:, -1].float(), "conv": _conv_tail(p, u)}
+        return y, None
+    # ---- decode step
+    u_t, conv_state = conv1d_step(p["conv"], u[:, 0], state["conv"])
+    a, b = _rglru_coeffs(p, u_t)
+    h = a.float() * state["h"] + b.float()
+    y = ((h.to(x.dtype) * gelu_branch[:, 0]) @ p["w_out"])[:, None]
+    return y.to(x.dtype), {"h": h, "conv": conv_state}
+
+
+def rglru_state_spec(cfg: ModelConfig, batch: int, dtype):
+    r = cfg.resolved_d_rnn
+    return {"h": torch.empty((batch, r), dtype=torch.float32, device="meta"),
+            "conv": torch.empty((batch, cfg.conv_width - 1, r), dtype=dtype,
+                                device="meta")}
 
 
 # ------------------------------------------------------------------ mLSTM

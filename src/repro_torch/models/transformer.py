@@ -1,6 +1,7 @@
 """Composable decoder covering the ported architecture families: the
-attention families (``attn`` / ``swa`` mixers with a dense FFN) and
-xLSTM (``mlstm`` / ``slstm`` mixers, no FFN).
+attention families (``attn`` / ``swa`` mixers with a dense FFN), xLSTM
+(``mlstm`` / ``slstm`` mixers, no FFN) and RecurrentGemma (``rglru``
+and ``swa`` mixers with a dense FFN).
 
 Layers follow ``cfg.block_pattern``; repeats of the pattern run as a
 Python loop over params stacked along a leading dim (the JAX package's
@@ -10,7 +11,8 @@ serving prefill (last-position logits plus a decode-ready state: KV
 caches or recurrent states) and single-token decode against that state.
 
 ``opts=None`` means ``kernel_opts(<device of the params>)``: on CUDA the
-full-sequence attention, mLSTM and sLSTM run the hand-written kernels.
+full-sequence attention, RG-LRU scan, mLSTM and sLSTM run the
+hand-written kernels.
 An explicit ``opts={}`` asks for the plain path.
 """
 from __future__ import annotations
@@ -26,17 +28,12 @@ from .layers import (attention, attention_spec, attn_cache_spec, ffn,
                      ffn_spec, rmsnorm, rmsnorm_spec)
 from .params import P, init_params, stack_specs, tree_map, tree_map_with_path
 from .recurrent import (mlstm_block, mlstm_block_spec, mlstm_state_spec,
+                        rglru_block, rglru_block_spec, rglru_state_spec,
                         slstm_block, slstm_block_spec, slstm_state_spec)
-
-_NOT_PORTED = {
-    RGLRU: "the RG-LRU block is not ported yet (ROADMAP A9)",
-}
 
 
 def _check_kind(cfg: ModelConfig, kind: str):
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
-    if kind not in (ATTN, SWA, MLSTM, SLSTM):
+    if kind not in (ATTN, SWA, RGLRU, MLSTM, SLSTM):
         raise ValueError(kind)
     if cfg.is_moe:
         raise NotImplementedError(
@@ -46,7 +43,8 @@ def _check_kind(cfg: ModelConfig, kind: str):
 # ------------------------------------------------------------------ specs
 
 _MIXER_SPECS = {ATTN: attention_spec, SWA: attention_spec,
-                MLSTM: mlstm_block_spec, SLSTM: slstm_block_spec}
+                RGLRU: rglru_block_spec, MLSTM: mlstm_block_spec,
+                SLSTM: slstm_block_spec}
 
 
 def block_spec(cfg: ModelConfig, kind: str):
@@ -86,6 +84,8 @@ def init_model(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 def _block_cache_spec(cfg: ModelConfig, kind: str, batch: int, length: int,
                       dtype):
     _check_kind(cfg, kind)
+    if kind == RGLRU:
+        return rglru_state_spec(cfg, batch, dtype)
     if kind == MLSTM:
         return mlstm_state_spec(cfg, batch, dtype)
     if kind == SLSTM:
@@ -145,7 +145,11 @@ def _block_apply(p, x, *, kind, cfg: ModelConfig, cache=None, positions=None,
     _check_kind(cfg, kind)
     opts = opts or {}
     h = rmsnorm(p["mixer"]["norm"], x, cfg.norm_eps)
-    if kind == MLSTM:
+    if kind == RGLRU:
+        y, nc = rglru_block(p["mixer"], h, cfg, state=cache,
+                            scan_fn=opts.get("rglru_scan"),
+                            return_state=prefill)
+    elif kind == MLSTM:
         y, nc = mlstm_block(p["mixer"], h, cfg, state=cache,
                             parallel_fn=opts.get("mlstm_fn"),
                             return_state=prefill)

@@ -14,6 +14,7 @@ import _torch_port  # noqa: F401  (thread cap)
 from repro_torch.configs import concrete_batch, get_config
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk
+from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.slstm_step import slstm_step_scan
 from repro_torch.kernels.ops import kernel_opts
 from repro_torch.models.params import params_from_numpy, params_to_numpy
@@ -21,6 +22,7 @@ from repro_torch.models.transformer import (init_decode_state, init_model,
                                             model_spec)
 from repro_torch.models.params import init_params
 from repro_torch.serving.engine import ContinuousBatchingEngine
+from repro_torch.serving.profile import measure_serve_step_time
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -69,6 +71,8 @@ ENTRY_POINTS = {
     "kernel_opts": lambda: kernel_opts(),
     "engine": lambda: ContinuousBatchingEngine(
         _cfg(), init_model(_cfg(), device="cpu"), slots=1, max_len=8),
+    "measure_serve_step_time": lambda: measure_serve_step_time(
+        get_config("recurrentgemma-2b"), slots=1, max_len=8, new_tokens=2),
 }
 
 
@@ -92,12 +96,15 @@ def test_flash_attention_refuses_other_devices():
         flash_attention(q, q, q)
 
 
-@pytest.mark.parametrize("kernel", ["mlstm_chunk", "slstm_step_scan"])
+@pytest.mark.parametrize("kernel", ["mlstm_chunk", "slstm_step_scan",
+                                    "rglru_scan"])
 def test_recurrent_kernels_refuse_other_devices(kernel):
     x = torch.empty(1, 8, 2, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         if kernel == "mlstm_chunk":
             mlstm_chunk(x, x, x, x[..., 0], x[..., 0])
+        elif kernel == "rglru_scan":
+            rglru_scan(x[..., 0], x[..., 0])
         else:
             r = torch.empty(2, 32, 32, device="meta")
             slstm_step_scan(torch.empty(1, 8, 2, 32, 4, device="meta"),

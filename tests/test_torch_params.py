@@ -26,11 +26,12 @@ from repro_torch.models.transformer import init_model, model_spec
 
 
 def _ported(cfg):
-    """The attention families with a dense FFN and xLSTM (mLSTM and
-    sLSTM mixers) are ported; the rest raise NotImplementedError naming
-    their ROADMAP item."""
-    return cfg.moe is None and all(k in ("attn", "swa", "mlstm", "slstm")
-                                   for k in cfg.block_pattern)
+    """The attention families with a dense FFN, xLSTM (mLSTM and sLSTM
+    mixers) and RecurrentGemma (RG-LRU mixers) are ported; the MoE
+    configs raise NotImplementedError naming their ROADMAP item."""
+    return cfg.moe is None and all(
+        k in ("attn", "swa", "rglru", "mlstm", "slstm")
+        for k in cfg.block_pattern)
 
 
 def _jax_spec_leaves(cfg):
@@ -83,6 +84,23 @@ def test_numpy_round_trip():
     w = flat["groups/0/pos0_swa/mixer/wq"]
     np.testing.assert_allclose(half["groups/0/pos0_swa/mixer/wq"], w,
                                rtol=2 ** -8, atol=0)
+
+
+def test_numpy_round_trip_recurrentgemma():
+    """recurrentgemma-2b.reduced(): the RG-LRU leaves (gates, conv, lam)
+    carry across and back bit for bit."""
+    cfg = jax_get_config("recurrentgemma-2b").reduced()
+    flat = _flatten_with_paths(jax_init_model(cfg, jax.random.PRNGKey(0)))
+    params = params_from_numpy(flat, device="cpu")
+    mixer = params["groups"][0]["pos0_rglru"]["mixer"]
+    r = cfg.resolved_d_rnn
+    assert mixer["w_rec_gate"].shape == (1, r, r)
+    assert mixer["conv"]["w"].shape == (1, cfg.conv_width, r)
+    np.testing.assert_array_equal(mixer["lam"].numpy(), 4.0)
+    back = params_to_numpy(params)
+    assert back.keys() == flat.keys()
+    for key in flat:
+        np.testing.assert_array_equal(back[key], flat[key])
 
 
 def test_init_follows_spec_rules():
