@@ -19,6 +19,10 @@ weights from a seed, in bf16:
   window-2048 layers, greedy decode from the prefill's state, and the
   engine answering 8 requests.
 
+Flash attention is also held against its plain version at the head dims
+the kernels pad (D 120, h2o-danube-3-4b; D 160, stablelm-12b) in both
+dtypes, and the sLSTM kernel at the xLSTM shape in fp32 as well.
+
 Every phase prints one JSON line and raises on failure.  The line
 before the last lists every ported kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
@@ -202,6 +206,7 @@ def slstm_case(kern, plain, gen, b, s, h, d, dtype):
     tests/test_kernels.py (gates N(0, 0.5^2), R N(0, 0.05^2)).  The plain
     version is a loop over S steps, so it is timed once after the check."""
     import torch
+    from repro_torch.kernels.slstm_step import cluster_split, mma_cluster
     gates = (torch.randn(b, s, h, d, 4, generator=gen, device="cuda")
              * 0.5).to(dtype)
     rs = [(torch.randn(h, d, d, generator=gen, device="cuda") * 0.05)
@@ -215,8 +220,11 @@ def slstm_case(kern, plain, gen, b, s, h, d, dtype):
                      plain(gates, *rs).float(), atol, rtol)
     bound_ms, bound_by = slstm_bound(b, s, h, d, name,
                                      gates.element_size())
+    cluster = (mma_cluster(d) if dtype == torch.bfloat16
+               else cluster_split(d).cluster)
     return {"kernel": "slstm_step_scan", "shape": [b, s, h, d],
-            "dtype": name, "tol": [atol, rtol], "max_err": max_err,
+            "dtype": name, "cluster": cluster, "tol": [atol, rtol],
+            "max_err": max_err,
             "kernel_ms": time_ms(lambda: kern(gates, *rs)),
             "launches": kern.launches - n0,
             "plain_ms": time_ms(lambda: plain(gates, *rs), runs=1, warmup=0),
@@ -418,7 +426,13 @@ def xlstm_phases(gen):
                         XLSTM_S, nh, dm, torch.bfloat16)
     main_s = slstm_case(slstm_step_scan, slstm_step_plain, gen, XLSTM_B,
                         XLSTM_S, nh, ds, torch.bfloat16)
-    cases += [main_m, main_s]
+    # the fp32 kernel at the main shape too (not on the model's path):
+    # B 8 x H 4 clusters, one a (batch row, head), and half as many
+    main_s32 = slstm_case(slstm_step_scan, slstm_step_plain, gen, XLSTM_B,
+                          XLSTM_S, nh, ds, torch.float32)
+    half_s32 = slstm_case(slstm_step_scan, slstm_step_plain, gen,
+                          XLSTM_B // 2, XLSTM_S, nh, ds, torch.float32)
+    cases += [main_m, main_s, main_s32, half_s32]
     emit("xlstm_kernels", cases=cases)
 
     # ---------------------------------------------------- small check
@@ -717,7 +731,9 @@ def main():
     emit("build", seconds=time.perf_counter() - t0,
          kernels={k: {"seconds": v["seconds"], "cached": v["cached"],
                       "ptxas": [ln.strip() for ln in v["log"].splitlines()
-                                if "registers" in ln or "spill" in ln]}
+                                if any(w in ln for w in (
+                                    "registers", "spill", "wgmma",
+                                    "setmaxnreg", "arning"))]}
                   for k, v in info.items()})
 
     # -------------------------------------------------------- kernels
@@ -726,11 +742,13 @@ def main():
     cases = []
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         # the shapes of tests/test_kernels.py, then two with a ragged
-        # last tile (S not a multiple of 64) at the model's head_dim
+        # last tile (S not a multiple of 64) at the model's head_dim, and
+        # two at the head dims the kernels pad (120 to 128, 160 to 192)
         for s, h, kv, d, w in [(256, 4, 4, 64, 0), (256, 4, 2, 64, 0),
                                (512, 8, 1, 32, 0), (256, 4, 2, 64, 100),
                                (384, 2, 2, 128, 128), (200, 4, 2, 256, 0),
-                               (300, 8, 4, 256, 100)]:
+                               (300, 8, 4, 256, 100), (200, 4, 2, 120, 0),
+                               (300, 8, 4, 160, 100)]:
             cases.append(kernel_case(flash_attention, flash_attention_plain,
                                      gen, 2, s, h, kv, d, w, dtype, tol))
     cfg = get_config("gemma3-4b")
@@ -743,6 +761,21 @@ def main():
         cases.append(c)
         main_cases[w] = c
     emit("kernels", cases=cases)
+
+    # ------------------------- flash attention at the padded head dims
+    # one batch row at the attention shapes of h2o-danube-3-4b (D 120,
+    # window 4096, S ragged and past the window) and stablelm-12b (D 160,
+    # global), in both dtypes
+    head_dim_cases = []
+    for arch, s in (("h2o-danube-3-4b", 4500), ("stablelm-12b", 2100)):
+        hc = get_config(arch)
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            c = kernel_case(flash_attention, flash_attention_plain, gen, 1, s,
+                            hc.num_heads, hc.num_kv_heads,
+                            hc.resolved_head_dim, hc.window_size, dtype,
+                            tol)
+            head_dim_cases.append({"config": arch, **c})
+    emit("flash_head_dims", cases=head_dim_cases)
 
     # -------------------------------------------------------- small check
     small = cfg.reduced()                        # 6 layers

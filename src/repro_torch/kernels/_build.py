@@ -5,7 +5,11 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` at first use into
 a hash of its source so that an edited kernel is rebuilt.  ``build``
 starts one ``nvcc`` per missing library, all at once, and waits for all
 of them.  Libraries are loaded with ``ctypes``; nothing here includes
-PyTorch's headers, so a build takes seconds.
+PyTorch's headers, so a build takes seconds.  The flash-attention
+library encodes its TMA tensor maps with the driver API's
+``cuTensorMapEncodeTiled``, reached at run time through the runtime's
+``cudaGetDriverEntryPoint``: nothing links against ``libcuda``, and no
+source includes CUTLASS.
 """
 from __future__ import annotations
 

@@ -5,37 +5,56 @@
 // (wrapper flash_attention, body _flash_kernel): the same function,
 // out = softmax(mask(q k^T)) v with q pre-scaled, query head h reading
 // kv head h / (H / KV), m, l and the accumulator in fp32, and tiles that
-// lie wholly outside the causal band or the window skipped.
+// lie wholly outside the causal band or the window skipped.  Any S (the
+// ragged last tile is masked) and any head dim that is a multiple of 8
+// from 32 to 256.
 //
 // What bounds it.  At the gemma3-4b prefill shape (B 4, S 4096, H 8,
 // KV 4, D 256, bf16) a live (query, key) pair costs 4*D FLOPs: a global
 // layer is ~275 GFLOP (~0.28 ms at 989 TFLOP/s bf16), a window-1024
 // layer ~120 GFLOP (~0.12 ms), while the ~200 MB of q/k/v/o traffic
-// takes ~0.06 ms at 3.35 TB/s.  So the kernel is compute-bound, and the
-// products belong on the tensor cores.
+// takes ~0.06 ms at 3.35 TB/s.  So the kernel is bound by the tensor
+// cores, and only wgmma reaches their full rate on this card.
 //
-// Design (rethought for the card, not carried over block by block):
-//  * One CTA per (query tile of 64 rows, query head, batch row).  A loop
-//    over KV tiles inside the CTA takes the place of the TPU grid's
-//    sequential kv dimension; the loop only visits tiles that meet the
-//    causal band and the window, so at S 4096 / window 1024 most tiles
-//    are never loaded.
-//  * bf16: four warps, each owning 16 query rows, run both products on
-//    the tensor cores with mma.sync m16n8k16 (bf16 in, fp32 out).  The
-//    score fragment is rescaled in registers and reused directly as the
-//    A operand of P.V (FlashAttention-2 register layout), so P never
-//    touches shared memory.  V is stored transposed in shared memory so
-//    that its B fragments are 32-bit loads.  Row statistics m and l stay
-//    in registers; l is reduced across the four lanes of a row at the
-//    end.  Shared memory at D 256 is ~104 KB (dynamic, above 48 KB).
-//  * fp32: a SIMT kernel with fp32 FMAs (tensor-core TF32 would miss the
-//    2e-5 tolerance).  Q, K and V tiles live in shared memory as fp32;
-//    each of 256 threads owns a 4 x (BK/16) score patch and a
-//    4 x (D/16) slice of the accumulator.
-//  * The ragged last tile is masked in the kernel (rows beyond S load
-//    zeros and are never stored), so S need not be a multiple of 64.
-//  * Plain C interface, loaded with ctypes; launches go on the caller's
-//    stream and the function returns cudaGetLastError().
+// Design of the bf16 kernel (flash_fwd_bf16):
+//  * One CTA per 128-row query tile of one (batch row, head), three
+//    warpgroups.  The last one is the producer: one thread issues TMA
+//    copies of Q (once) and of each K and V tile into a ring of stages
+//    (2 at D 256, up to 4 at small D), each stage guarded by a "K full",
+//    a "V full" and an "empty" mbarrier.  The other two are consumers,
+//    each owning 64 query rows, so every K/V stage serves 128 rows.
+//    setmaxnreg moves registers from the producer (40) to the consumers
+//    (232): at D 256 a consumer thread holds 128 fp32 of O.
+//  * Tensor maps view q, k and v with their real strides as 4-D
+//    (D, heads, S, B) arrays; a box is 64 columns (128 bytes, the
+//    128-byte swizzle's limit) by 64 rows, so D 256 arrives as four
+//    boxes.  Columns past D and rows past S are filled with zeros by the
+//    TMA unit: D 120 is padded to 128 and D 160 to 192, and the ragged
+//    last tile loads zeros.
+//  * S = Q K^T is a chain of wgmma m64n64k16 with Q and K read K-major
+//    from the swizzled shared tiles.  The rescaled probabilities are
+//    packed to bf16 in the accumulator's own layout, which is the
+//    register layout of wgmma's A operand, and O += P V runs as wgmma
+//    with A from registers and V read MN-major through the descriptor's
+//    transpose bit (no transpose pass over V).  m and l stay in fp32
+//    registers; exp runs as ex2 on log2-scaled scores.
+//  * Only tiles that straddle the diagonal, the window edge or S apply
+//    the per-element mask; a tile wholly masked for one warpgroup's rows
+//    is skipped by it (it still waits for the tile and releases it).
+//  * The grid is 1-D and walks the query tiles from the last (the most
+//    KV tiles under the causal mask) to the first, so the final wave is
+//    made of the short tiles.
+// The fp32 kernel (flash_fwd_f32) is a SIMT kernel with fp32 FMAs
+// (tensor-core TF32 would miss the 2e-5 tolerance): Q, K and V tiles in
+// shared memory as fp32, D padded to a multiple of 64 with zeros; each of
+// 256 threads owns a 4 x (BK/16) score patch and a 4 x (D/16) slice of
+// the accumulator.
+//
+// Plain C interface, loaded with ctypes; launches go on the caller's
+// stream and the function returns a cudaError_t.  The tensor maps are
+// encoded on the host with cuTensorMapEncodeTiled, reached through the
+// runtime's cudaGetDriverEntryPoint (no link against libcuda).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,17 +62,8 @@
 namespace {
 
 constexpr float kNegBig = -1e30f;   // m's initial value, as in the TPU kernel
-constexpr int kBQ = 64;             // query rows per CTA
-constexpr int kBK = 64;             // keys per KV tile
-
-// First and one-past-last KV tile that can hold a live key for query
-// rows [q0, q_last].
-__device__ __forceinline__ void kv_tiles(int q0, int q_last, int window,
-                                         int& kt0, int& kt1) {
-  const int k_lo = window ? max(0, q0 - window + 1) : 0;
-  kt0 = k_lo / kBK;
-  kt1 = q_last / kBK + 1;
-}
+constexpr int kBQ = 64;             // fp32: query rows per CTA
+constexpr int kBK = 64;             // keys per KV tile (both kernels)
 
 __device__ __forceinline__ bool live(int qp, int kp, int window) {
   return kp <= qp && (window == 0 || qp - kp < window);
@@ -61,17 +71,17 @@ __device__ __forceinline__ bool live(int qp, int kp, int window) {
 
 // ------------------------------------------------------------------ fp32
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(256)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
-              int S, int H, int KV, int window) {
+              int S, int H, int KV, int D, int window) {
   constexpr int NT = 256;
-  constexpr int LD = D + 1;        // padded rows: column reads hit distinct banks
+  constexpr int LD = DP + 1;       // padded rows: column reads hit distinct banks
   constexpr int LDP = kBK + 1;
   constexpr int RPT = kBQ / 16;    // query rows per thread
   constexpr int CPT = kBK / 16;    // score columns per thread
-  constexpr int DPT = D / 16;      // output columns per thread
+  constexpr int DPT = DP / 16;     // output columns per thread
   static_assert(kBQ * 4 == NT, "softmax phase maps 4 threads to a row");
 
   extern __shared__ float smem[];
@@ -93,9 +103,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
   float* ob = o + (size_t)b * S * q_row + (size_t)h * D;
 
-  for (int i = tid; i < kBQ * D; i += NT) {
-    const int r = i / D, c = i % D, qp = q0 + r;
-    Qs[r * LD + c] = qp < S ? qb[(size_t)qp * q_row + c] : 0.f;
+  for (int i = tid; i < kBQ * DP; i += NT) {
+    const int r = i / DP, c = i % DP, qp = q0 + r;
+    Qs[r * LD + c] = qp < S && c < D ? qb[(size_t)qp * q_row + c] : 0.f;
   }
   if (tid < kBQ) {
     m_s[tid] = kNegBig;
@@ -109,14 +119,15 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
 
-  int kt0, kt1;
-  kv_tiles(q0, min(q0 + kBQ, S) - 1, window, kt0, kt1);
+  const int q_last = min(q0 + kBQ, S) - 1;
+  const int kt0 = (window ? max(0, q0 - window + 1) : 0) / kBK;
+  const int kt1 = q_last / kBK + 1;
   for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();   // the previous tile's readers are done
-    for (int i = tid; i < kBK * D; i += NT) {
-      const int r = i / D, c = i % D, kp = k0 + r;
-      const bool ok = kp < S;
+    for (int i = tid; i < kBK * DP; i += NT) {
+      const int r = i / DP, c = i % DP, kp = k0 + r;
+      const bool ok = kp < S && c < D;
       Ks[r * LD + c] = ok ? kb[(size_t)kp * kv_row + c] : 0.f;
       Vs[r * LD + c] = ok ? vb[(size_t)kp * kv_row + c] : 0.f;
     }
@@ -204,21 +215,148 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (qp >= S) continue;
     const float l = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DPT; ++j)
-      ob[(size_t)qp * q_row + cg + 16 * j] = acc[i][j] / l;
+    for (int j = 0; j < DPT; ++j) {
+      const int c = cg + 16 * j;
+      if (c < D) ob[(size_t)qp * q_row + c] = acc[i][j] / l;
+    }
   }
 }
 
-// ------------------------------------------------------------------ bf16
+// ------------------------------------------------ bf16: Hopper primitives
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
+constexpr int kWgRows = 64;                  // query rows of a consumer warpgroup
+constexpr int kConsumers = 2;                // consumer warpgroups
+constexpr int kHBQ = kWgRows * kConsumers;   // query rows per CTA
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kBoxCols = 64;                 // bf16 columns of a 128-byte box
+constexpr int kBoxBytes = 64 * 128;          // a box: 64 rows of 128 bytes
+constexpr int kSmemLimit = 232448;           // opt-in shared memory a block
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* tm,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a tile in the 128-byte swizzle:
+// start address, leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// K-major operand (Q, K): rows of 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+
+// MN-major operand (V read as B of P V): the 16 keys of a k16 step are two
+// 8-row groups 1024 bytes apart; an n64 product stays inside one box.
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
+  return sw128_desc(addr, 1024, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accesses of wgmma's registers across the
+// asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= A B, m64n64k16, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A B, m64n64k16, A (bf16 pairs) in registers, B MN-major in shared
+// memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -226,228 +364,335 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&t);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// Shared-memory plan of the bf16 kernel for NBOX 64-column boxes of D:
+// Q for both consumers, then the K and V rings, then the mbarriers.
+template <int NBOX>
+struct Plan {
+  static constexpr int kTile = NBOX * kBoxBytes;        // 64 rows of Q, K or V
+  static constexpr int kQ = kConsumers * kTile;
+  static constexpr int kFit = (kSmemLimit - 2048 - kQ) / (2 * kTile);
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kBarriers = 3 * kStages + 1;
+  static constexpr int kBytes = 1024 + kQ + 2 * kStages * kTile + 8 * kBarriers;
+  static_assert(kStages >= 2, "a ring of at least two K/V stages");
+  static_assert(kBytes <= kSmemLimit, "shared memory");
+};
 
-template <int D>
-__global__ void __launch_bounds__(128)
-flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ o, int S, int H, int KV,
-               int window) {
-  constexpr int NT = 128;
-  constexpr int LDQ = D + 8;       // +16 bytes: fragment loads hit distinct banks
-  constexpr int LDV = kBK + 8;
-  constexpr int NK = kBK / 8;      // score n-tiles per warp
-  constexpr int ND = D / 8;        // output n-tiles per warp
-  constexpr int C8 = D / 8;        // 16-byte chunks per row
+// ------------------------------------------------------------------ bf16
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kBQ * LDQ;
-  __nv_bfloat16* Vt = Ks + kBK * LDQ;    // transposed: Vt[d][key]
+template <int NBOX>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               __nv_bfloat16* __restrict__ o, int B, int S, int H, int KV,
+               int D, int window) {
+  using P = Plan<NBOX>;
+  constexpr int ST = P::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms
+  const uint32_t sQ = base;                        // [consumer][box][64][64]
+  const uint32_t sK = sQ + P::kQ;                  // [stage][box][64][64]
+  const uint32_t sV = sK + ST * P::kTile;
+  const uint32_t bars = sV + ST * P::kTile;        // full_k, full_v, empty, q
+  const uint32_t q_full = bars + 8 * (3 * ST);
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  // longest query tiles first: the last tile has the most KV tiles
+  const int nq = (S + kHBQ - 1) / kHBQ;
+  const int hb = (int)(blockIdx.x % (unsigned)(H * B));
+  const int qt = nq - 1 - (int)(blockIdx.x / (unsigned)(H * B));
+  const int h = hb % H, b = hb / H;
   const int kvh = h / (H / KV);
-  const size_t q_row = (size_t)H * D, kv_row = (size_t)KV * D;
-  const __nv_bfloat16* qb = q + (size_t)b * S * q_row + (size_t)h * D;
-  const __nv_bfloat16* kb = k + (size_t)b * S * kv_row + (size_t)kvh * D;
-  const __nv_bfloat16* vb = v + (size_t)b * S * kv_row + (size_t)kvh * D;
-  __nv_bfloat16* ob = o + (size_t)b * S * q_row + (size_t)h * D;
+  const int q0 = qt * kHBQ;
+  const int kt0 = (window ? max(0, q0 - window + 1) : 0) / kBK;
+  const int kt1 = (min(q0 + kHBQ, S) - 1) / kBK + 1;
 
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int i = tid; i < kBQ * C8; i += NT) {
-    const int r = i / C8, c = (i % C8) * 8, qp = q0 + r;
-    *reinterpret_cast<uint4*>(&Qs[r * LDQ + c]) =
-        qp < S ? *reinterpret_cast<const uint4*>(&qb[(size_t)qp * q_row + c])
-               : zero;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bars + 8 * s, 1);                  // K full: the producer
+      mbar_init(bars + 8 * (ST + s), 1);           // V full: the producer
+      mbar_init(bars + 8 * (2 * ST + s), 4 * kConsumers);  // empty: a warp each
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const int wq0 = q0 + warp * 16;          // this warp's first query row
-  const int row0 = wq0 + g, row1 = row0 + 8;
-  float m_r[2] = {kNegBig, kNegBig};
-  float l_r[2] = {0.f, 0.f};               // partial: this lane's columns only
-  float oacc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
-
-  int kt0, kt1;
-  kv_tiles(q0, min(q0 + kBQ, S) - 1, window, kt0, kt1);
-  const int wq_last = min(wq0 + 15, S - 1);
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();   // the previous tile's readers are done
-    for (int i = tid; i < kBK * C8; i += NT) {
-      const int r = i / C8, c = (i % C8) * 8, kp = k0 + r;
-      *reinterpret_cast<uint4*>(&Ks[r * LDQ + c]) =
-          kp < S ? *reinterpret_cast<const uint4*>(&kb[(size_t)kp * kv_row + c])
-                 : zero;
-    }
-    // V transposed; consecutive threads take consecutive keys so the
-    // scalar stores fall in distinct banks
-    for (int i = tid; i < kBK * C8; i += NT) {
-      const int r = i % kBK, c = (i / kBK) * 8, kp = k0 + r;
-      uint4 raw = kp < S
-          ? *reinterpret_cast<const uint4*>(&vb[(size_t)kp * kv_row + c])
-          : zero;
-      const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(c + e) * LDV + r] = e8[e];
-    }
-    __syncthreads();
-
-    // skip a tile that is wholly masked for this warp's 16 rows
-    if (wq0 >= S || k0 > wq_last ||
-        (window && k0 + kBK - 1 < wq0 - window + 1))
-      continue;
-
-    float sacc[NK][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
-    const __nv_bfloat16* qa = &Qs[(warp * 16 + g) * LDQ + 2 * t];
-#pragma unroll 4
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t a0 = ld32(qa + kk * 16);
-      const uint32_t a1 = ld32(qa + 8 * LDQ + kk * 16);
-      const uint32_t a2 = ld32(qa + kk * 16 + 8);
-      const uint32_t a3 = ld32(qa + 8 * LDQ + kk * 16 + 8);
-#pragma unroll
-      for (int j = 0; j < NK; ++j) {
-        const __nv_bfloat16* kbp = &Ks[(j * 8 + g) * LDQ + kk * 16 + 2 * t];
-        mma_bf16(sacc[j], a0, a1, a2, a3, ld32(kbp), ld32(kbp + 8));
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      const int n_q = q0 + kWgRows < S ? kConsumers : 1;
+      mbar_expect_tx(q_full, n_q * P::kTile);
+      for (int w = 0; w < n_q; ++w)
+        for (int bx = 0; bx < NBOX; ++bx)
+          tma_load_4d(sQ + (w * NBOX + bx) * kBoxBytes, &tm_q, q_full,
+                      bx * kBoxCols, h, q0 + w * kWgRows, b);
+      for (int i = 0, kt = kt0; kt < kt1; ++i, ++kt) {
+        const int st = i % ST;
+        const uint32_t ph = (uint32_t)(i / ST) & 1u;
+        mbar_wait(bars + 8 * (2 * ST + st), ph ^ 1u);   // the stage is free
+        const uint32_t fk = bars + 8 * st, fv = bars + 8 * (ST + st);
+        mbar_expect_tx(fk, P::kTile);
+        for (int bx = 0; bx < NBOX; ++bx)
+          tma_load_4d(sK + st * P::kTile + bx * kBoxBytes, &tm_k, fk,
+                      bx * kBoxCols, kvh, kt * kBK, b);
+        mbar_expect_tx(fv, P::kTile);
+        for (int bx = 0; bx < NBOX; ++bx)
+          tma_load_4d(sV + st * P::kTile + bx * kBoxBytes, &tm_v, fv,
+                      bx * kBoxCols, kvh, kt * kBK, b);
       }
     }
+  } else {
+    // ------------------------------------------------------- consumer
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, qd = lane % 4;
+    const int r0 = q0 + wg * kWgRows;              // this warpgroup's rows
+    const int r_last = min(r0 + kWgRows, S) - 1;
+    const int row0 = r0 + warp * 16 + g;           // this thread's rows: row0, row0 + 8
+    const uint32_t sQw = sQ + wg * P::kTile;
 
-    // mask, then online softmax on rows row0 (e 0,1) and row1 (e 2,3)
-    float mx[2] = {-INFINITY, -INFINITY};
+    float oacc[NBOX][32];
 #pragma unroll
-    for (int j = 0; j < NK; ++j)
+    for (int c = 0; c < NBOX; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = k0 + j * 8 + 2 * t + (e & 1);
-        const int qp = e < 2 ? row0 : row1;
-        if (!(kp < S && live(qp, kp, window))) sacc[j][e] = -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sacc[j][e]);
+      for (int e = 0; e < 32; ++e) oacc[c][e] = 0.f;
+    float m_r[2] = {kNegBig, kNegBig};             // log2 domain
+    float l_r[2] = {0.f, 0.f};                     // this lane's columns only
+
+    mbar_wait(q_full, 0);
+    for (int i = 0, kt = kt0; kt < kt1; ++i, ++kt) {
+      const int st = i % ST;
+      const uint32_t ph = (uint32_t)(i / ST) & 1u;
+      const int k0 = kt * kBK;
+      const bool dead = r0 > r_last || k0 > r_last ||
+                        (window && k0 + kBK - 1 < r0 - window + 1);
+      mbar_wait(bars + 8 * st, ph);                // K has landed
+      if (!dead) {
+        // ---------------------------------------------- S = Q K^T
+        float sacc[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) sacc[e] = 0.f;
+        fence_regs(sacc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NBOX * 4; ++kk) {
+          const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+          wgmma_ss(sacc, desc_kmajor(sQw + off),
+                   desc_kmajor(sK + st * P::kTile + off), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sacc);
+
+        // ------------------------- mask (edge tiles only), online softmax
+        const bool edge = k0 + kBK - 1 > r0 || k0 + kBK > S ||
+                          (window && k0 < r_last - window + 1);
+        if (edge) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kp = k0 + j * 8 + 2 * qd + (e & 1);
+              const int qp = row0 + 8 * (e >> 1);
+              if (!(kp < S && live(qp, kp, window))) sacc[4 * j + e] = -INFINITY;
+            }
+        }
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mx[e >> 1] = fmaxf(mx[e >> 1], sacc[4 * j + e]);
+        float corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m_r[r], mx[r] * kLog2e);
+          corr[r] = ex2(m_r[r] - m_new);
+          m_r[r] = m_new;
+          l_r[r] *= corr[r];
+        }
+        uint32_t pa[4][4];                         // P as A of 4 k16 slices
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[e] = ex2(fmaf(sacc[4 * j + e], kLog2e, -m_r[e >> 1]));
+            l_r[e >> 1] += p[e];
+          }
+          pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
+          pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+        }
+#pragma unroll
+        for (int c = 0; c < NBOX; ++c)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            oacc[c][4 * j + 0] *= corr[0];
+            oacc[c][4 * j + 1] *= corr[0];
+            oacc[c][4 * j + 2] *= corr[1];
+            oacc[c][4 * j + 3] *= corr[1];
+          }
+
+        // ---------------------------------------------- O += P V
+        mbar_wait(bars + 8 * (ST + st), ph);       // V has landed
+#pragma unroll
+        for (int c = 0; c < NBOX; ++c) fence_regs(oacc[c]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+          for (int c = 0; c < NBOX; ++c)
+            wgmma_rs(oacc[c], pa[kk],
+                     desc_mnmajor(sV + st * P::kTile + c * kBoxBytes +
+                                  kk * 16 * 128));
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int c = 0; c < NBOX; ++c) fence_regs(oacc[c]);
       }
-    float corr[2];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (2 * ST + st));   // release the stage
+    }
+
+    // ----------------------------------------------------- epilogue
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_r[r], mx[r]);
-      corr[r] = __expf(m_r[r] - m_new);
-      m_r[r] = m_new;
-      l_r[r] *= corr[r];
-    }
+      float l = l_r[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      const int qp = row0 + 8 * r;
+      if (qp >= S) continue;
+      __nv_bfloat16* orow = o + (((size_t)b * S + qp) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < NK; ++j)
+      for (int c = 0; c < NBOX; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float s = sacc[j][e];
-        const float p = s == -INFINITY ? 0.f : __expf(s - m_r[e >> 1]);
-        sacc[j][e] = p;
-        l_r[e >> 1] += p;
-      }
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      oacc[j][0] *= corr[0];
-      oacc[j][1] *= corr[0];
-      oacc[j][2] *= corr[1];
-      oacc[j][3] *= corr[1];
-    }
-
-    // O += P V: the score fragments of key n-tiles 2kk, 2kk+1 are the
-    // A fragment of the k16 slice kk
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a0 = pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]);
-      const uint32_t a1 = pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]);
-      const uint32_t a2 = pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        const __nv_bfloat16* vbp = &Vt[(j * 8 + g) * LDV + kk * 16 + 2 * t];
-        mma_bf16(oacc[j], a0, a1, a2, a3, ld32(vbp), ld32(vbp + 8));
-      }
-    }
-  }
-
-  float l_tot[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_r[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l_tot[r] = 1.f / fmaxf(l, 1e-30f);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = r ? row1 : row0;
-    if (qp >= S) continue;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const uint32_t w = pack_bf16(oacc[j][2 * r] * l_tot[r],
-                                   oacc[j][2 * r + 1] * l_tot[r]);
-      *reinterpret_cast<uint32_t*>(&ob[(size_t)qp * q_row + j * 8 + 2 * t]) = w;
+        for (int j = 0; j < 8; ++j) {
+          const int col = c * kBoxCols + j * 8 + 2 * qd;
+          if (col < D)
+            *reinterpret_cast<uint32_t*>(orow + col) =
+                pack_bf16(oacc[c][4 * j + 2 * r] * inv,
+                          oacc[c][4 * j + 2 * r + 1] * inv);
+        }
     }
   }
 }
 
-template <typename Kern, typename T>
-int launch(Kern kern, int threads, size_t smem, const void* q, const void* k,
-           const void* v, void* o, int B, int S, int H, int KV, int window,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  kern<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, window);
+// ------------------------------------------------------------------ host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (D, heads, S, B) bf16 view of a contiguous (B, S, heads, D) tensor, in
+// boxes of 64 columns by 64 rows of one head, 128-byte swizzled; reads out
+// of bounds (columns past D, rows past S) fill zeros.
+int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+             int D) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {kBoxCols, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int NBOX>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int KV, int D, int window, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, q, B, S, H, D);
+  if (!err) err = make_map(&tk, k, B, S, KV, D);
+  if (!err) err = make_map(&tv, v, B, S, KV, D);
+  if (err) return err;
+  const int smem = Plan<NBOX>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_bf16<NBOX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long ctas = (long long)((S + kHBQ - 1) / kHBQ) * H * B;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  flash_fwd_bf16<NBOX><<<(unsigned)ctas, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, H, KV, D, window);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int dispatch(int dtype, const void* q, const void* k, const void* v, void* o,
-             int B, int S, int H, int KV, int window, cudaStream_t stream) {
-  if (dtype == 0) {
-    const size_t smem =
-        sizeof(float) * ((kBQ + 2 * kBK) * (D + 1) + kBQ * (kBK + 1) + 3 * kBQ);
-    return launch<decltype(&flash_fwd_f32<D>), float>(
-        flash_fwd_f32<D>, 256, smem, q, k, v, o, B, S, H, KV, window, stream);
-  }
-  const size_t smem = sizeof(__nv_bfloat16) *
-                      ((kBQ + kBK) * (D + 8) + D * (kBK + 8));
-  return launch<decltype(&flash_fwd_bf16<D>), __nv_bfloat16>(
-      flash_fwd_bf16<D>, 128, smem, q, k, v, o, B, S, H, KV, window, stream);
+template <int DP>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int H, int KV, int D, int window, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((kBQ + 2 * kBK) * (DP + 1) + kBQ * (kBK + 1) + 3 * kBQ);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  flash_fwd_f32<DP><<<grid, 256, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, D,
+      window);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q: (B,S,H,D), k and v: (B,S,KV,D), o: (B,S,H,D), all contiguous and
-// 16-byte aligned.  dtype 0 = float32, 1 = bfloat16.  Returns a
-// cudaError_t (0 on success).
+// 16-byte aligned; D a multiple of 8 from 32 to 256.  dtype 0 = float32,
+// 1 = bfloat16.  Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int S, int H, int KV, int D,
                                    int window, int dtype, void* stream) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (KV <= 0 || H % KV != 0 || window < 0) return (int)cudaErrorInvalidValue;
+  if (D % 8 != 0 || D < 32 || D > 256) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return dispatch<32>(dtype, q, k, v, o, B, S, H, KV, window, st);
-    case 64: return dispatch<64>(dtype, q, k, v, o, B, S, H, KV, window, st);
-    case 128: return dispatch<128>(dtype, q, k, v, o, B, S, H, KV, window, st);
-    case 256: return dispatch<256>(dtype, q, k, v, o, B, S, H, KV, window, st);
-    default: return (int)cudaErrorInvalidValue;
+  const int boxes = (D + kBoxCols - 1) / kBoxCols;   // 64-column blocks of D
+  if (dtype == 0) {
+    switch (boxes) {
+      case 1: return launch_f32<64>(q, k, v, o, B, S, H, KV, D, window, st);
+      case 2: return launch_f32<128>(q, k, v, o, B, S, H, KV, D, window, st);
+      case 3: return launch_f32<192>(q, k, v, o, B, S, H, KV, D, window, st);
+      default: return launch_f32<256>(q, k, v, o, B, S, H, KV, D, window, st);
+    }
+  }
+  switch (boxes) {
+    case 1: return launch_bf16<1>(q, k, v, o, B, S, H, KV, D, window, st);
+    case 2: return launch_bf16<2>(q, k, v, o, B, S, H, KV, D, window, st);
+    case 3: return launch_bf16<3>(q, k, v, o, B, S, H, KV, D, window, st);
+    default: return launch_bf16<4>(q, k, v, o, B, S, H, KV, D, window, st);
   }
 }

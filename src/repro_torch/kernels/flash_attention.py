@@ -18,8 +18,15 @@ import torch
 from ._build import library
 from .ref import attention_ref
 
-HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def supports_head_dim(d: int) -> bool:
+    """The head dims the kernels take: multiples of 8 (rows of whole
+    16-byte units, as TMA needs) from 32 to 256 (wgmma's widest n).  The
+    bf16 kernel pads D to whole 64-column boxes, the fp32 one to a
+    multiple of 64, both with zeros."""
+    return d % 8 == 0 and 32 <= d <= 256
 
 
 def flash_attention_plain(q, k, v, window: int = 0):
@@ -39,7 +46,7 @@ def _lib():
 
 
 def _aligned(x):
-    """Contiguous with a 16-byte-aligned start (the kernel's vector loads)."""
+    """Contiguous with a 16-byte-aligned start (TMA and vector loads)."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
@@ -57,8 +64,9 @@ def flash_attention(q, k, v, window: int = 0):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                         f"{v.dtype}; takes float32 or bfloat16")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
+    if not supports_head_dim(d):
+        raise ValueError(f"flash_attention: head_dim {d} is not a multiple "
+                         "of 8 from 32 to 256")
     if kvh == 0 or h % kvh or window < 0:
         raise ValueError(f"flash_attention: heads {h}/{kvh}, window {window}")
     if k.device != q.device or v.device != q.device:

@@ -3,6 +3,8 @@ versions) against the JAX package's Pallas kernels run in interpret
 mode, at the shapes and tolerances of tests/test_kernels.py, on the same
 numpy inputs; and the port's chunked mLSTM oracle, final state included,
 against the JAX package's."""
+from collections import Counter
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +18,9 @@ from repro.models.blockwise import mlstm_chunked as jax_mlstm_chunked
 from repro.models.slstm_scan import slstm_scan as jax_slstm_scan
 from repro_torch.kernels import ref
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk
-from repro_torch.kernels.slstm_step import slstm_step_scan
+from repro_torch.kernels.slstm_step import (MAX_HEAD_DIM, MMA_THREADS,
+                                            R_REGISTERS, cluster_split,
+                                            mma_cluster, slstm_step_scan)
 from repro_torch.models.blockwise import mlstm_chunked
 
 _DT = {"float32": (jnp.float32, torch.float32),
@@ -128,3 +132,66 @@ def test_slstm_step_bf16_matches_pallas():
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(np32(out), np32(expected), atol=2 ** -8,
                                rtol=0)
+
+
+_SLSTM_HEAD_DIMS = list(range(16, MAX_HEAD_DIM + 1, 16))
+
+
+@pytest.mark.parametrize("d", _SLSTM_HEAD_DIMS)
+def test_slstm_fp32_split_gives_every_unit_to_one_thread_group(d):
+    """The fp32 kernel's map (CTA rank r, thread t = u P + p -> unit
+    r U + u, over d chunks p, p + P, ...): each unit, and so its four
+    gate rows, belongs to one CTA and one group of P lanes; the chunks
+    cover D once; the slice of R fits the registers it is given, with the
+    fewest CTAs that allow it."""
+    sp = cluster_split(d)
+    units = Counter(r * sp.units + t // sp.parts for r in range(sp.cluster)
+                    for t in range(0, sp.threads, sp.parts))
+    assert units == Counter(range(d))
+    chunks = sorted(p + sp.parts * c for p in range(sp.parts)
+                    for c in range(sp.chunks))
+    assert chunks == list(range(sp.parts * sp.chunks))
+    assert d <= 4 * len(chunks) < d + 4 * sp.parts
+    assert sp.cluster in (1, 2, 4, 8) and sp.cluster <= sp.parts
+    assert sp.units * sp.cluster == d and 32 % sp.parts == 0
+    assert sp.threads % 32 == 0
+    assert sp.threads <= (512 if sp.chunks <= 4 else 384)
+    assert sp.r_registers <= R_REGISTERS
+    assert sp.cluster == 1 or 4 * d * d > sp.cluster // 2 * R_REGISTERS
+    assert 16 + 2 * 16 * sp.parts * sp.chunks <= 48 * 1024   # h buffers
+
+
+@pytest.mark.parametrize("d", _SLSTM_HEAD_DIMS)
+def test_slstm_bf16_split_gives_every_gate_row_to_one_lane(d):
+    """The bf16 kernel's map (warp w of CTA r holds units 8 w + 4 t +
+    g % 4 as rows g and g + 8 of tile t: z, f for g < 4, i, o for
+    g >= 4): every one of the 4 D gate rows is held once, by one CTA;
+    a CTA stays at MMA_THREADS threads or fewer, with the fewest CTAs
+    that allow it, and its R fits the A-fragment registers."""
+    c = mma_cluster(d)
+    units, warps = d // c, -(-(d // c) // 8)
+    rows = Counter()
+    for rank in range(c):
+        for w in range(warps):
+            for tile in range(2):
+                for g in range(8):
+                    u = 8 * w + 4 * tile + g % 4
+                    if u < units:
+                        e = rank * units + u
+                        rows["zi"[g // 4], e] += 1
+                        rows["fo"[g // 4], e] += 1
+    assert rows == Counter({(gate, e): 1 for gate in "zifo"
+                            for e in range(d)})
+    assert c in (1, 2, 4) and units * c == d
+    assert 32 * warps <= MMA_THREADS
+    assert c == 1 or 32 * -(-(d // (c // 2)) // 8) > MMA_THREADS
+    assert 2 * 2 * -(-d // 32) * 4 <= 128          # A fragments a lane
+    assert 16 + 2 * 16 * 2 * -(-d // 32) * 16 <= 48 * 1024   # h buffers
+
+
+@pytest.mark.parametrize("d", [0, 8, 24, 100, 272])
+def test_slstm_refuses_head_dims_the_kernels_do_not_take(d):
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cluster_split(d)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        mma_cluster(d)
