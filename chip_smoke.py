@@ -21,7 +21,10 @@ weights from a seed, in bf16:
 
 Flash attention is also held against its plain version at the head dims
 the kernels pad (D 120, h2o-danube-3-4b; D 160, stablelm-12b) in both
-dtypes, and the sLSTM kernel at the xLSTM shape in fp32 as well.
+dtypes, and the sLSTM kernel at the xLSTM shape in fp32 as well.  Before
+any of that, each of the four wrappers is shown to refuse a CUDA input
+that requires grad while grad mode is on, and to launch under
+``torch.no_grad()``.
 
 Every phase prints one JSON line and raises on failure.  The line
 before the last lists every ported kernel; the last line is
@@ -175,15 +178,23 @@ def kernel_case(fa, plain, gen, b, s, h, kv, d, window, dtype, tol):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def mlstm_case(kern, plain, gen, b, s, h, d, dtype):
+def mlstm_case(kern, plain, gen, b, s, h, d, dtype, strided=False):
     """The mLSTM kernel against its plain version on the inputs of
     tests/test_kernels.py (standard normal; forget pre-activations
-    around +2)."""
+    around +2).  ``strided``: q, k and v are the first D columns of
+    (B, S, H, D + 32) tensors, and i and f the two halves of one
+    (B, S, H, 2) tensor, so that every input is read by strides."""
     import torch
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
-    q, k, v = (rnd(b, s, h, d).to(dtype) for _ in range(3))
-    ip = rnd(b, s, h).to(dtype)
-    fp = (rnd(b, s, h) * 2 + 2).to(dtype)
+    if strided:
+        q, k, v = (rnd(b, s, h, d + 32).to(dtype)[..., :d] for _ in range(3))
+        gates = rnd(b, s, h, 2)
+        gates[..., 1] = gates[..., 1] * 2 + 2
+        ip, fp = gates.to(dtype).unbind(-1)
+    else:
+        q, k, v = (rnd(b, s, h, d).to(dtype) for _ in range(3))
+        ip = rnd(b, s, h).to(dtype)
+        fp = (rnd(b, s, h) * 2 + 2).to(dtype)
     xs = (q, k, v, ip, fp)
     name = str(dtype).replace("torch.", "")
     n0 = kern.launches
@@ -194,7 +205,7 @@ def mlstm_case(kern, plain, gen, b, s, h, d, dtype):
                      plain(*xs).float(), tol, 5e-2)
     bound_ms, bound_by = mlstm_bound(b, s, h, d, name, q.element_size())
     return {"kernel": "mlstm_chunk", "shape": [b, s, h, d], "dtype": name,
-            "tol": [tol, 5e-2], "max_err": max_err,
+            "strided": strided, "tol": [tol, 5e-2], "max_err": max_err,
             "kernel_ms": time_ms(lambda: kern(*xs)),
             "launches": kern.launches - n0,
             "plain_ms": time_ms(lambda: plain(*xs), runs=3, warmup=1),
@@ -238,13 +249,21 @@ def rglru_bound(b, s, r, dtype_name, itemsize):
                     PEAK_FLOPS[dtype_name])
 
 
-def rglru_case(kern, plain, gen, b, s, r, dtype):
+def rglru_case(kern, plain, gen, b, s, r, dtype, offset=0):
     """The RG-LRU kernel against its plain version on the inputs of
-    tests/test_kernels.py (a in (0.8, 1), b ~ N(0, 0.1^2))."""
+    tests/test_kernels.py (a in (0.8, 1), b ~ N(0, 0.1^2)).  ``offset``:
+    a and b start that many elements into their buffers (contiguous, but
+    not aligned to a pair of channels or to 16 bytes)."""
     import torch
     rnd = lambda: torch.randn(b, s, r, generator=gen, device="cuda")
-    a = (torch.sigmoid(rnd()) * 0.2 + 0.8).to(dtype)
-    x = (rnd() * 0.1).to(dtype)
+
+    def place(x):
+        buf = torch.empty(x.numel() + offset, dtype=dtype, device="cuda")
+        out = buf[offset:].view(b, s, r)
+        out.copy_(x)
+        return out
+    a = place((torch.sigmoid(rnd()) * 0.2 + 0.8).to(dtype))
+    x = place((rnd() * 0.1).to(dtype))
     name = str(dtype).replace("torch.", "")
     n0 = kern.launches
     out = kern(a, x)
@@ -254,11 +273,57 @@ def rglru_case(kern, plain, gen, b, s, r, dtype):
                           plain(a, x).float(), tol, RGLRU_RTOL)
     bound_ms, bound_by = rglru_bound(b, s, r, name, a.element_size())
     return {"kernel": "rglru_scan", "shape": [b, s, r], "dtype": name,
-            "tol": [tol, RGLRU_RTOL], "max_err": max_err,
+            "offset": offset, "tol": [tol, RGLRU_RTOL], "max_err": max_err,
             "kernel_ms": time_ms(lambda: kern(a, x)),
             "launches": kern.launches - n0,
             "plain_ms": time_ms(lambda: plain(a, x)),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def grad_rule():
+    """Each kernel wrapper refuses a CUDA input that requires grad while
+    grad mode is on (the kernels have no backward yet, ROADMAP B10), and
+    launches on the same inputs under torch.no_grad()."""
+    import torch
+    from repro_torch.kernels.ops import (flash_attention, mlstm_chunk,
+                                         rglru_scan, slstm_step_scan)
+    rnd = lambda *shape: torch.randn(*shape, device="cuda",
+                                     dtype=torch.bfloat16)
+    calls = {
+        "flash_attention": (flash_attention, lambda: [
+            rnd(1, 64, 2, 64) * 0.125, rnd(1, 64, 2, 64), rnd(1, 64, 2, 64)]),
+        "mlstm_chunk": (mlstm_chunk, lambda: [
+            rnd(1, 64, 1, 64), rnd(1, 64, 1, 64), rnd(1, 64, 1, 64),
+            rnd(1, 64, 1), rnd(1, 64, 1) + 2]),
+        "rglru_scan": (rglru_scan, lambda: [
+            torch.sigmoid(rnd(1, 64, 128)), rnd(1, 64, 128) * 0.1]),
+        "slstm_step_scan": (slstm_step_scan, lambda: [
+            rnd(1, 16, 1, 16, 4) * 0.5,
+            *(rnd(1, 16, 16) * 0.05 for _ in range(4))]),
+    }
+    out = {}
+    for name, (fn, make) in calls.items():
+        xs = make()
+        xs[0].requires_grad_(True)
+        n0 = fn.launches
+        refused = ""
+        with torch.enable_grad():
+            try:
+                fn(*xs)
+            except RuntimeError as err:
+                refused = str(err)
+        if "B10" not in refused or fn.launches != n0:
+            raise AssertionError(f"{name} did not refuse a grad-requiring "
+                                 f"CUDA input under grad mode: {refused!r}")
+        with torch.no_grad():
+            y = fn(*xs)
+        torch.cuda.synchronize()
+        if fn.launches != n0 + 1 or y.requires_grad or \
+                not bool(torch.isfinite(y.float()).all()):
+            raise AssertionError(f"{name} did not launch under no_grad")
+        out[name] = {"refused_under_grad": True,
+                     "launched_under_no_grad": True}
+    return out
 
 
 def small_check(cfg):
@@ -413,11 +478,17 @@ def xlstm_phases(gen):
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         # the shapes of tests/test_kernels.py, then ragged S (the mLSTM
-        # kernel masks its last chunk) at the model's head dim
+        # kernel masks its last chunk) at the model's head dim, D 96 (a
+        # 96-column value tile, 3 head-dim slabs), the smallest and largest
+        # D the kernels take and one of 32-column value tiles, and every
+        # input read by strides
         for s, h, hd in [(256, 2, 64), (512, 4, 128), (200, nh, dm),
-                         (37, 2, 96)]:
+                         (37, 2, 96), (100, 2, 32), (130, 1, 160),
+                         (70, 1, 512)]:
             cases.append(mlstm_case(mlstm_chunk, mlstm_chunk_plain, gen,
                                     2, s, h, hd, dtype))
+        cases.append(mlstm_case(mlstm_chunk, mlstm_chunk_plain, gen, 2, 200,
+                                nh, dm, dtype, strided=True))
         for s, h, hd in [(256, 2, 128), (128, 4, 64), (256, 1, 256),
                          (300, nh, ds)]:
             cases.append(slstm_case(slstm_step_scan, slstm_step_plain, gen,
@@ -573,12 +644,17 @@ def rgemma_phases(gen):
     # ------------------------------------------------- RG-LRU kernel
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
-        # the shapes of tests/test_kernels.py, then ragged S and R (odd
-        # R takes the kernel's one-channel-a-thread path)
-        for s, rr in [(256, 128), (512, 256), (128, 384), (200, 200),
-                      (37, 77)]:
+        # the shapes of tests/test_kernels.py, then ragged S and R: odd R
+        # (one channel a lane, in registers), R even but rows not whole
+        # 16-byte units (pairs in registers), S 1, S not a multiple of the
+        # 128-step segment at the model's R, and a pointer one channel
+        # into its buffer
+        for s, rr, off in [(256, 128, 0), (512, 256, 0), (128, 384, 0),
+                           (200, 200, 0), (37, 77, 0), (300, 33, 0),
+                           (300, 2562, 0), (1, r, 0), (1000, r, 0),
+                           (300, r, 1)]:
             cases.append(rglru_case(rglru_scan, rglru_scan_plain, gen,
-                                    2, s, rr, dtype))
+                                    2, s, rr, dtype, offset=off))
     main_r = rglru_case(rglru_scan, rglru_scan_plain, gen, PREFILL_B,
                         PREFILL_S, r, torch.bfloat16)
     cases.append(main_r)
@@ -735,6 +811,9 @@ def main():
                                     "registers", "spill", "wgmma",
                                     "setmaxnreg", "arning"))]}
                   for k, v in info.items()})
+
+    # ----------------------------------------------- the gradient rule
+    emit("grad_rule", wrappers=grad_rule())
 
     # -------------------------------------------------------- kernels
     gen = torch.Generator(device="cuda")

@@ -15,6 +15,7 @@ import ctypes
 
 import torch
 
+from ._autograd import refuse_grad
 from ._build import library
 from .ref import attention_ref
 
@@ -56,6 +57,7 @@ def flash_attention(q, k, v, window: int = 0):
         return flash_attention_plain(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    refuse_grad("flash_attention", q, k, v)
     b, s, h, d = q.shape
     kvh = k.shape[2]
     if k.shape != (b, s, kvh, d) or v.shape != k.shape:

@@ -6,7 +6,9 @@ pre-activations; out (B, S, H, D) in q's dtype, all math in float32.
 q is scaled by D**-0.5 inside, as in ``mlstm_parallel_ref``.
 
 On a CUDA tensor it launches the hand-written kernel in
-``csrc/mlstm_chunk.cu`` or raises.  On a CPU tensor it runs the plain
+``csrc/mlstm_chunk.cu`` or raises: for bfloat16 the products on the
+tensor cores (bf16 operands, fp32 accumulators, C in fp32 registers),
+for float32 SIMT FMAs.  On a CPU tensor it runs the plain
 version, ``mlstm_chunk_plain``: the port's chunked form in float32 at
 the kernel's chunk size.  ``mlstm_chunk.launches`` counts kernel
 launches.  Any S is taken: a ragged last chunk is masked.
@@ -18,11 +20,12 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ._autograd import refuse_grad
 from ._build import library
 from .ref import mlstm_chunked_ref
 
 CHUNK = 64          # the kernel's chunk length
-MAX_HEAD_DIM = 512  # the kernel keeps a (D, 64) float32 slice of C on chip
+MAX_HEAD_DIM = 512  # the kernels hold a (D, tile) fp32 slice of C on chip
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -56,6 +59,7 @@ def mlstm_chunk(q, k, v, i_pre, f_pre):
         return mlstm_chunk_plain(q, k, v, i_pre, f_pre)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunk: unsupported device {q.device}")
+    refuse_grad("mlstm_chunk", q, k, v, i_pre, f_pre)
     b, s, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape or \
             i_pre.shape != (b, s, h) or f_pre.shape != (b, s, h):
@@ -71,14 +75,16 @@ def mlstm_chunk(q, k, v, i_pre, f_pre):
                          f"32 up to {MAX_HEAD_DIM}")
     if any(t.device != q.device for t in ts):
         raise ValueError("mlstm_chunk: inputs on different devices")
-    # every input is read by strides in its own layout; q, k and v by
-    # 4-wide vector loads (a unit-stride head dim, a 16-byte start and
-    # strides in multiples of 4)
+    # every input is read by strides in its own layout; q, k and v in
+    # 16-byte copies (a unit-stride head dim, a 16-byte aligned start and
+    # strides of whole 16 bytes: 4 fp32 or 8 bf16 elements); i and f by
+    # any strides
     if any(t.stride(-1) != 1 or t.data_ptr() % 16 or
-           any(st % 4 for st in t.stride()[:3]) for t in (q, k, v)):
+           any(st * t.element_size() % 16 for st in t.stride()[:3])
+           for t in (q, k, v)):
         raise ValueError("mlstm_chunk: q, k and v need a unit-stride head "
                          "dim, a 16-byte aligned start and strides in "
-                         "multiples of 4")
+                         "multiples of 16 bytes")
     strides = (ctypes.c_longlong * 15)(*(st for t in ts
                                          for st in t.stride()[:3]))
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)

@@ -15,6 +15,7 @@ import ctypes
 
 import torch
 
+from ._autograd import refuse_grad
 from ._build import library
 from .ref import rglru_scan_ref
 
@@ -41,6 +42,7 @@ def rglru_scan(a, b):
         return rglru_scan_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: unsupported device {a.device}")
+    refuse_grad("rglru_scan", a, b)
     if a.ndim != 3 or b.shape != a.shape:
         raise ValueError(f"rglru_scan: a {tuple(a.shape)}, b {tuple(b.shape)}")
     if a.dtype not in _DTYPES or b.dtype != a.dtype:

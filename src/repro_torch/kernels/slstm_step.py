@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ._autograd import refuse_grad
 from ._build import library
 
 MAX_HEAD_DIM = 256
@@ -119,6 +120,7 @@ def slstm_step_scan(gates, rz, ri, rf, ro):
         return slstm_step_plain(gates, rz, ri, rf, ro)
     if gates.device.type != "cuda":
         raise ValueError(f"slstm_step_scan: unsupported device {gates.device}")
+    refuse_grad("slstm_step_scan", gates, rz, ri, rf, ro)
     b, s, h, d, four = gates.shape
     rs = (rz, ri, rf, ro)
     if four != 4 or any(r.shape != (h, d, d) for r in rs):
