@@ -26,12 +26,29 @@ any of that, each of the four wrappers is shown to refuse a CUDA input
 that requires grad while grad mode is on, and to launch under
 ``torch.no_grad()``.
 
+Then training, in fp32 on the model's plain paths (the kernels have no
+backward, and the JAX package trains without them), with the four
+kernels' launch counters held at 0 throughout:
+
+- ``train_check``: one train step of xlstm-125m.reduced() on the card
+  and on the CPU from the same parameters and batch, held together;
+- ``train_step``: xlstm-125m at full width, B 8 x S 512, through
+  ``BuiltJob`` at ``ddp`` and at ``remat-offload``, one warm-up and three
+  timed steps each (and the forward alone at ``ddp``), then a warm-up
+  and a timed step with the batched-gradient sLSTM scan;
+- ``train_resume``: in a child process with deterministic algorithms on,
+  four straight steps against two steps, a checkpoint, a resume and two
+  more steps, bit-equal;
+- ``train_cli``: ``python -m repro_torch.launch.train`` at full width
+  for four steps, leaving a checkpoint that verifies.
+
 Every phase prints one JSON line and raises on failure.  The line
 before the last lists every ported kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA
 device or without the repo's ``src/repro_torch`` beside this script.
 """
 import json
+import math
 import subprocess
 import sys
 import time
@@ -50,6 +67,13 @@ MLSTM_TOL = {"float32": 2e-3, "bfloat16": 5e-2}   # tests/test_kernels.py
 SLSTM_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2 ** -8, 0.0)}
 RGLRU_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 RGLRU_RTOL = 1e-2
+TRAIN_B, TRAIN_S = 8, 512    # the JAX launcher's defaults (launch/train.py)
+TRAIN_STEPS = 3              # timed, after one warm-up step
+CHECK_B, CHECK_S = 4, 64     # train_check and train_resume, reduced config
+# train_check, CUDA against CPU at fp32: loss and grad_norm relative; the
+# parameters after one step at lr 1e-3 absolute (the CPU tests hold the
+# port to the JAX package at 1e-4 on xlstm-micro)
+TRAIN_CHECK_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-4}
 
 
 def emit(phase, **kv):
@@ -772,6 +796,287 @@ def rgemma_phases(gen):
     return [flash_line, rglru_line]
 
 
+def kernel_wrappers():
+    from repro_torch.kernels.ops import (flash_attention, mlstm_chunk,
+                                         rglru_scan, slstm_step_scan)
+    return {"flash_attention": flash_attention, "mlstm_chunk": mlstm_chunk,
+            "rglru_scan": rglru_scan, "slstm_step_scan": slstm_step_scan}
+
+
+def check_no_launches(phase):
+    launches = {k: f.launches for k, f in kernel_wrappers().items()}
+    if any(launches.values()):
+        raise AssertionError(f"{phase}: training launched kernels {launches}")
+    return launches
+
+
+def max_leaf_diff(a, b):
+    """Largest |a - b| over the leaves of two trees, and its leaf."""
+    from repro_torch.models.params import tree_leaves_with_paths
+    worst = (0.0, "")
+    for (path, x), (_, y) in zip(tree_leaves_with_paths(a),
+                                 tree_leaves_with_paths(b)):
+        d = float((x.float().cpu() - y.float().cpu()).abs().max())
+        worst = max(worst, (d, "/".join(path)))
+    return worst
+
+
+def train_check():
+    """One fp32 train step of xlstm-125m.reduced() on the card and on the
+    CPU from the same parameters and SyntheticLM batch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import make_train_step
+    cfg = get_config("xlstm-125m").reduced()
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=100))
+    batch = next(SyntheticLM(cfg, seed=0).batches(CHECK_B, CHECK_S,
+                                                  device="cpu"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev),
+                          init_model(cfg, seed=3, device="cpu"))
+        out[dev] = step(params, init_opt_state(params),
+                        {k: v.to(dev) for k, v in batch.items()})
+    (pc, oc, mc), (pg, og, mg) = out["cpu"], out["cuda"]
+    rel = lambda k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+    param_err, leaf = max_leaf_diff(pg, pc)
+    err = {"loss": rel("loss"), "grad_norm": rel("grad_norm"),
+           "params": param_err}
+    if any(err[k] > TRAIN_CHECK_TOL[k] for k in err) or \
+            int(og["step"]) != 1:
+        raise AssertionError(f"train_check: CUDA step against CPU step {err} "
+                             f"(worst leaf {leaf}), bound {TRAIN_CHECK_TOL}")
+    return {"config": cfg.name, "batch": CHECK_B, "seq": CHECK_S,
+            "err": err, "worst_param_leaf": leaf, "tol": TRAIN_CHECK_TOL,
+            "err_means": "loss, grad_norm: |cuda - cpu| / |cpu|; params: "
+                         "max |cuda - cpu| after the step",
+            "loss": {"cuda": float(mg["loss"]), "cpu": float(mc["loss"])}}
+
+
+def timed_steps(step, params, opt, batches):
+    """Run ``step`` over ``batches``; returns (params, opt, per-step
+    seconds, losses, grad norms)."""
+    import torch
+    secs, losses, norms = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"non-finite loss or grad_norm: {losses} {norms}")
+    return params, opt, secs, losses, norms
+
+
+def device_busy(step, params, opt, batch):
+    """One train step under torch.profiler (device activity only): the
+    step's wall time, the summed time of the device work it ran (kernels,
+    copies and sets on one stream, so they do not overlap) and their
+    ratio, the device's busy share.  Profiling adds a little to the wall
+    time, so the share is if anything low.  None where the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the raw events: key_averages() takes tens of seconds on 0.6 M
+    by_name, count = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+            count += 1
+    busy = sum(by_name.values()) / 1e9
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"profiled_step_s": wall, "device_busy_s": busy or None,
+            "device_busy_share": busy / wall if busy else None,
+            "device_events": count,
+            "top_device_s": {k[:60]: v / 1e9 for k, v in top}}
+
+
+def train_step_phase():
+    """xlstm-125m at full width, fp32, B 8 x S 512 through BuiltJob at ddp
+    and remat-offload (one device each), then two steps with the
+    batched-gradient sLSTM scan."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.library import ParallelismLibrary
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallelism.build import BuiltJob
+    from repro_torch.train.steps import lm_loss, make_train_step
+    cfg = get_config("xlstm-125m")
+    lib = ParallelismLibrary()
+    # the launcher's schedule for a 100-step run
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=100, warmup_steps=5)
+    batches = list(SyntheticLM(cfg, seed=0).batches(
+        TRAIN_B, TRAIN_S, num_batches=1 + TRAIN_STEPS, device="cuda"))
+    out = {}
+    for tech in ("ddp", "remat-offload"):
+        job = BuiltJob(cfg, lib.get(tech).plan(cfg, 1), opt_cfg,
+                       device="cuda")
+        params, opt = job.init(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, secs, losses, norms = timed_steps(
+            job.step, params, opt, map(job.place_batch, batches))
+        s_step = sorted(secs[1:])[len(secs[1:]) // 2]
+        if tech == "ddp":
+            # the step's forward alone (the loss, no autograd graph), and
+            # how busy one more step keeps the device
+            t0 = time.perf_counter()
+            lm_loss(params, cfg, batches[0])
+            torch.cuda.synchronize()
+            forward_s = time.perf_counter() - t0
+            busy = device_busy(job.step, params, opt, batches[0])
+        out[tech] = {"remat": job.plan.remat, "warmup_s": secs[0],
+                     "step_s": secs[1:], "median_step_s": s_step,
+                     "tokens_per_s": TRAIN_B * TRAIN_S / s_step,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "loss": losses, "grad_norm": norms}
+        del params, opt
+        torch.cuda.empty_cache()
+    out["ddp"].update(forward_s=forward_s, **busy)
+    job = BuiltJob(cfg, lib.get("ddp").plan(cfg, 1), opt_cfg, device="cuda")
+    params, opt = job.init(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, opt_cfg, opts={"slstm_batched_grad": True})
+    params, opt, secs, losses, norms = timed_steps(step, params, opt,
+                                                   batches[:2])
+    out["ddp_slstm_batched_grad"] = {
+        "warmup_s": secs[0], "step_s": secs[1:], "median_step_s": secs[1],
+        "tokens_per_s": TRAIN_B * TRAIN_S / secs[1],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "loss": losses, "grad_norm": norms}
+    if abs(losses[0] - out["ddp"]["loss"][0]) > 1e-4 * abs(losses[0]):
+        raise AssertionError("the batched-gradient step's first loss "
+                             f"{losses[0]} is not the ddp step's "
+                             f"{out['ddp']['loss'][0]}")
+    del params, opt
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "dtype": "float32", "batch": TRAIN_B,
+            "seq": TRAIN_S, "steps": out}
+
+
+def resume_child(workdir):
+    """Child of phase ``train_resume``: with deterministic algorithms on,
+    4 straight steps against 2 steps, a checkpoint, ``load_training_state``
+    and 2 more steps from ``skip=2``.  Prints one JSON line; exits 1
+    unless the losses and the final state are bit-equal."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.checkpoint.store import (load_training_state,
+                                              save_checkpoint)
+    from repro_torch.configs import get_config
+    from repro_torch.core.library import ParallelismLibrary
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.params import tree_leaves_with_paths
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallelism.build import BuiltJob
+    cfg = get_config("xlstm-125m").reduced()
+    job = BuiltJob(cfg, ParallelismLibrary().get("ddp").plan(cfg, 1),
+                   AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4),
+                   device="cuda")
+    data = SyntheticLM(cfg, seed=0)
+
+    def run(params, opt, skip, n):
+        losses = []
+        for b in data.batches(CHECK_B, CHECK_S, num_batches=n, skip=skip,
+                              device="cuda"):
+            params, opt, m = job.step(params, opt, b)
+            losses.append(float(m["loss"]))
+        return params, opt, losses
+
+    straight = run(*job.init(0), 0, 4)
+    params, opt, first = run(*job.init(0), 0, 2)
+    path = str(Path(workdir) / "resume.npz")
+    save_checkpoint(path, {"params": params, "opt": opt},
+                    {"step": 2, "loss": first[-1]})
+    params, opt, start = load_training_state(path, *job.init(0))
+    resumed = run(params, opt, start, 2)
+    equal = {"/".join(p): bool(torch.equal(x, y)) for (p, x), (_, y) in zip(
+        tree_leaves_with_paths(straight[:2]), tree_leaves_with_paths(
+            resumed[:2]))}
+    ok = start == 2 and straight[2][2:] == resumed[2] and all(equal.values())
+    print(json.dumps({"start_step": start, "straight_loss": straight[2],
+                      "resumed_loss": first + resumed[2],
+                      "leaves": len(equal),
+                      "unequal": [k for k, v in equal.items() if not v]}))
+    return 0 if ok else 1
+
+
+def train_resume():
+    import os
+    workdir = Path(__file__).resolve().parent / "build" / "train_resume"
+    workdir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--resume-child", str(workdir)], env=env,
+                       capture_output=True, text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    if r.returncode != 0 or not lines:
+        raise AssertionError(f"train_resume child exited {r.returncode}: "
+                             f"{r.stdout[-2000:]} {r.stderr[-4000:]}")
+    return {"config": "xlstm-125m-smoke", "batch": CHECK_B, "seq": CHECK_S,
+            "deterministic": True, "bit_equal": True,
+            **json.loads(lines[-1])}
+
+
+def train_cli():
+    """``python -m repro_torch.launch.train`` at full width for 4 steps;
+    its checkpoint must verify."""
+    import os
+    from repro_torch.checkpoint.store import verify_checkpoint
+    root = Path(__file__).resolve().parent
+    ckpt = root / "build" / "train_cli" / "ck.npz"
+    for stale in ckpt.parent.glob("ck.npz*"):
+        stale.unlink()
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "xlstm-125m", "--technique", "ddp", "--devices", "1", "--steps",
+           "4", "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+           "--log-every", "1", "--ckpt", str(ckpt)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                       cwd=root, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"launch.train exited {r.returncode}: "
+                             f"{r.stdout[-2000:]} {r.stderr[-4000:]}")
+    steps = [ln for ln in r.stdout.splitlines() if ln.startswith("step")]
+    meta = verify_checkpoint(str(ckpt))
+    if len(steps) != 4 or meta.get("step") != 4:
+        raise AssertionError(f"launch.train: {steps} {meta}")
+    return {"command": " ".join(cmd[1:]), "returncode": r.returncode,
+            "seconds": seconds, "step_lines": steps,
+            "checkpoint_verified": True, "checkpoint_step": meta["step"],
+            "checkpoint_mb": ckpt.stat().st_size / 1e6}
+
+
+def train_phases():
+    """The training phases; the four kernel counters stay at 0."""
+    for f in kernel_wrappers().values():
+        f.launches = 0
+    emit("train_check", **train_check())
+    emit("train_step", **train_step_phase(),
+         kernel_launches=check_no_launches("train_step"))
+    emit("train_resume", **train_resume())
+    emit("train_cli", **train_cli())
+    check_no_launches("training")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -945,6 +1250,10 @@ def main():
 
     # ------------------------------------------------- recurrentgemma
     rgemma_lines = rgemma_phases(gen)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- training
+    train_phases()
     print(json.dumps({"kernels": [flash_line] + xlstm_lines
                       + rgemma_lines}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
@@ -956,4 +1265,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resume-child"]:
+        sys.exit(resume_child(sys.argv[2]))
     sys.exit(main())

@@ -19,6 +19,7 @@ from .blockwise import mlstm_chunked
 from .config import ModelConfig
 from .layers import rmsnorm_spec
 from .params import P
+from .slstm_scan import slstm_scan, step_core
 
 # ------------------------------------------------------------ causal conv
 
@@ -272,34 +273,27 @@ def _slstm_step(p, carry, gates_t):
     """carry: (c, n, m, h); gates_t: per-time pre-activations (B,H,D,4).
     c, n, m stay float32; h keeps its dtype (the activations')."""
     c, n, m, h = carry
-    zx, ix, fx, ox = (gates_t[..., i] for i in range(4))
-    z_pre = zx + torch.einsum("bhd,hed->bhe", h, p["rz"])
-    i_pre = (ix + torch.einsum("bhd,hed->bhe", h, p["ri"])).float()
-    f_pre = (fx + torch.einsum("bhd,hed->bhe", h, p["rf"])).float()
-    o_pre = ox + torch.einsum("bhd,hed->bhe", h, p["ro"])
-    z = torch.tanh(z_pre).float()
-    lf = F.logsigmoid(f_pre)
-    m_new = torch.maximum(lf + m, i_pre)
-    fg = torch.exp(lf + m - m_new)
-    ig = torch.exp(i_pre - m_new)
-    c_new = fg * c + ig * z
-    n_new = torch.clamp(fg * n + ig, min=1e-6)
-    h_new = (torch.sigmoid(o_pre).float() * c_new / n_new).to(h.dtype)
-    return (c_new, n_new, m_new, h_new)
+    pres = [gates_t[..., i] + torch.einsum("bhd,hed->bhe", h, p[r])
+            for i, r in enumerate(("rz", "ri", "rf", "ro"))]
+    c_new, n_new, m_new, h_new = step_core(*pres, c, n, m)
+    return (c_new, n_new, m_new, h_new.to(h.dtype))
 
 
 def slstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
-                return_state: bool = False, slstm_fn=None):
+                return_state: bool = False, slstm_fn=None,
+                batched_grad: bool = False):
     """sLSTM block.  x: (B,S,d).  Returns (y, new_state).
 
     state=None: the recurrence over the whole sequence, one
-    ``_slstm_step`` a time step; with ``slstm_fn`` (and no state asked
-    for) the recurrence is ``slstm_fn(gates, rz, ri, rf, ro) -> h`` in
-    the signature of the sLSTM kernel instead.  At float32 the two
-    compute the same function.  Under bf16 they differ: the kernel
-    carries h in float32 between steps, the step scan carries it in the
-    activations' dtype, as the JAX package's does.  state=dict: one
-    decode step, x is (B, 1, d)."""
+    ``_slstm_step`` a time step; with ``batched_grad`` the same scan
+    runs as ``slstm_scan.slstm_scan``, whose backward computes dR once
+    after the time loop.  With ``slstm_fn`` (and no state asked for) the
+    recurrence is ``slstm_fn(gates, rz, ri, rf, ro) -> h`` in the
+    signature of the sLSTM kernel instead.  At float32 these compute the
+    same function.  Under bf16 the kernel differs: it carries h in
+    float32 between steps, the step scans carry it in the activations'
+    dtype, as the JAX package's does.  state=dict: one decode step, x is
+    (B, 1, d)."""
     b, s, d = x.shape
     nh = cfg.num_heads
     dh = d // nh
@@ -318,11 +312,15 @@ def slstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
                  torch.zeros((b, nh, dh), device=dev),
                  torch.full((b, nh, dh), -1e30, device=dev),
                  torch.zeros((b, nh, dh), dtype=x.dtype, device=dev))
-        hs = []
-        for t in range(s):
-            carry = _slstm_step(p, carry, gates[:, t])
-            hs.append(carry[3])
-        h = torch.stack(hs, dim=1).reshape(b, s, d)
+        if batched_grad:
+            carry, hs = slstm_scan(p, gates.transpose(0, 1), carry)
+            h = hs.transpose(0, 1).reshape(b, s, d)
+        else:
+            hs = []
+            for t in range(s):
+                carry = _slstm_step(p, carry, gates[:, t])
+                hs.append(carry[3])
+            h = torch.stack(hs, dim=1).reshape(b, s, d)
         if return_state:
             c, n, m, h_last = carry
             return h @ p["w_out"], {"c": c, "n": n, "m": m, "h": h_last}

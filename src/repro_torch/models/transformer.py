@@ -13,13 +13,15 @@ caches or recurrent states) and single-token decode against that state.
 ``opts=None`` means ``kernel_opts(<device of the params>)``: on CUDA the
 full-sequence attention, RG-LRU scan, mLSTM and sLSTM run the
 hand-written kernels.
-An explicit ``opts={}`` asks for the plain path.
+An explicit ``opts={}`` asks for the plain path, which training takes
+(``train.steps.lm_loss``): the kernels have no backward.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels.ops import kernel_opts
@@ -156,7 +158,9 @@ def _block_apply(p, x, *, kind, cfg: ModelConfig, cache=None, positions=None,
     elif kind == SLSTM:
         y, nc = slstm_block(p["mixer"], h, cfg, state=cache,
                             return_state=prefill,
-                            slstm_fn=opts.get("slstm_fn"))
+                            slstm_fn=opts.get("slstm_fn"),
+                            batched_grad=opts.get("slstm_batched_grad",
+                                                  False))
     else:
         window = cfg.window_size if kind == SWA else 0
         y, nc = attention(p["mixer"], h, cfg, window=window, cache=cache,
@@ -171,33 +175,49 @@ def _block_apply(p, x, *, kind, cfg: ModelConfig, cache=None, positions=None,
 
 
 def _run_groups(params, cfg: ModelConfig, x, *, caches=None, positions=None,
-                pos=None, opts=None, prefill=False):
+                pos=None, opts=None, remat=False, prefill=False):
     """Run all layer groups.  Returns (x, new_caches, aux).
 
     prefill=True: caches are None on input but every block *returns* its
     decode-ready state.  With caches (decode) an attention block writes
     into its slot of the (stacked) KV cache in place, so the input cache
     is returned as the new one; a recurrent block returns new state
-    tensors, stacked here like the params."""
+    tensors, stacked here like the params.
+
+    remat=True recomputes activations in the backward pass at the JAX
+    package's granularity: one repeat of the pattern in a scanned group,
+    each block in an unrolled one."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_groups = []
     for gi, (mode, pattern, n) in enumerate(cfg.layer_plan()):
         gparams = params["groups"][gi]
         gcaches = caches[gi] if caches is not None else None
         reps = 1 if mode == "unroll" else n
-        collected = {f"pos{i}_{kind}": [] for i, kind in enumerate(pattern)}
+        keyed = [(f"pos{i}_{kind}", kind) for i, kind in enumerate(pattern)]
+        units = [[k] for k in keyed] if mode == "unroll" else [keyed]
+        collected = {key: [] for key, _ in keyed}
         for r in range(reps):
             at = (lambda t: t) if mode == "unroll" else (lambda t, r=r: t[r])
-            for i, kind in enumerate(pattern):
-                key = f"pos{i}_{kind}"
-                c = tree_map(at, gcaches[key]) if gcaches is not None else None
-                x, nc, a = _block_apply(
-                    tree_map(at, gparams[key]), x, kind=kind, cfg=cfg,
-                    cache=c, positions=positions, pos=pos, opts=opts,
-                    prefill=prefill)
+            for unit in units:
+                def run(x_, unit=unit, at=at):
+                    ncs, aux_ = {}, 0.0
+                    for key, kind in unit:
+                        c = (tree_map(at, gcaches[key])
+                             if gcaches is not None else None)
+                        x_, ncs[key], a = _block_apply(
+                            tree_map(at, gparams[key]), x_, kind=kind,
+                            cfg=cfg, cache=c, positions=positions, pos=pos,
+                            opts=opts, prefill=prefill)
+                        aux_ = aux_ + a
+                    return x_, ncs, aux_
+                if remat:
+                    x, ncs, a = checkpoint(run, x, use_reentrant=False)
+                else:
+                    x, ncs, a = run(x)
                 aux_total = aux_total + a
-                if prefill or (gcaches is not None and kind in RECURRENT):
-                    collected[key].append(nc)
+                for key, kind in unit:
+                    if prefill or (gcaches is not None and kind in RECURRENT):
+                        collected[key].append(ncs[key])
         if gcaches is None and not prefill:
             new_groups.append(None)
             continue
@@ -240,11 +260,11 @@ def unembed(params, cfg: ModelConfig, x):
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *,
-            opts: Optional[dict] = None):
+            opts: Optional[dict] = None, remat: bool = False):
     """Full-sequence forward.  Returns (logits, aux_loss)."""
     opts = _resolve_opts(params, opts)
     x = embed_inputs(params, cfg, batch)
-    x, _, aux = _run_groups(params, cfg, x, opts=opts)
+    x, _, aux = _run_groups(params, cfg, x, opts=opts, remat=remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, cfg, x), aux
 

@@ -23,6 +23,11 @@ from repro_torch.models.transformer import (init_decode_state, init_model,
 from repro_torch.models.params import init_params
 from repro_torch.serving.engine import ContinuousBatchingEngine
 from repro_torch.serving.profile import measure_serve_step_time
+from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.launch import train as launch_train
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.parallelism.build import BuiltJob
+from repro_torch.parallelism.techniques import DEFAULT_TECHNIQUES
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -51,6 +56,9 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "import repro_torch.serving.engine, repro_torch.train.steps\n"
             "import repro_torch.kernels.ops, repro_torch.configs\n"
+            "import repro_torch.launch.train, repro_torch.parallelism.build\n"
+            "import repro_torch.checkpoint.store, repro_torch.core.library\n"
+            "import repro_torch.data.synthetic, repro_torch.optim.adamw\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
             "                     if sys.modules[m] is not None]\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
@@ -73,6 +81,12 @@ ENTRY_POINTS = {
         _cfg(), init_model(_cfg(), device="cpu"), slots=1, max_len=8),
     "measure_serve_step_time": lambda: measure_serve_step_time(
         get_config("recurrentgemma-2b"), slots=1, max_len=8, new_tokens=2),
+    "SyntheticLM.batches": lambda: SyntheticLM(_cfg()).batches(1, 4),
+    "BuiltJob": lambda: BuiltJob(_cfg(), DEFAULT_TECHNIQUES[0].plan(
+        _cfg(), 1), AdamWConfig()),
+    "launch.train": lambda: launch_train.main([
+        "--arch", "xlstm-125m", "--reduced", "--technique", "ddp",
+        "--devices", "1", "--steps", "1"]),
 }
 
 
