@@ -33,14 +33,33 @@ kernels' launch counters held at 0 throughout:
 - ``train_check``: one train step of xlstm-125m.reduced() on the card
   and on the CPU from the same parameters and batch, held together;
 - ``train_step``: xlstm-125m at full width, B 8 x S 512, through
-  ``BuiltJob`` at ``ddp`` and at ``remat-offload``, one warm-up and three
-  timed steps each (and the forward alone at ``ddp``), then a warm-up
-  and a timed step with the batched-gradient sLSTM scan;
+  ``BuiltJob`` at ``ddp`` and at ``remat-offload``, one warm-up and two
+  timed steps at ``ddp`` (and the forward alone), one at
+  ``remat-offload``, then a warm-up and a timed step with the
+  batched-gradient sLSTM scan;
 - ``train_resume``: in a child process with deterministic algorithms on,
   four straight steps against two steps, a checkpoint, a resume and two
   more steps, bit-equal;
 - ``train_cli``: ``python -m repro_torch.launch.train`` at full width
-  for four steps, leaving a checkpoint that verifies.
+  for two steps, leaving a checkpoint that verifies.
+
+Then Saturn's own loop (profile -> solve -> execute -> observe ->
+replan) on xlstm-125m jobs at full width, B 8 x S 128, fp32, with the
+kernel counters still held at 0 (checkpoints under ``build/saturn/``,
+removed after each phase):
+
+- ``saturn_profile``: the empirical Trial Runner, one warm-up and two
+  timed steps at ``ddp`` x1 and ``remat-offload`` x1, against the
+  card's own ``HardwareSpec``;
+- ``saturn_fidelity``: three jobs under one SaturnStatic schedule,
+  predicted by the SimBackend and executed by ``LocalTorchBackend``;
+- ``saturn_restart``: an introspection replan flips j0 from ``ddp`` x1
+  to ``remat-offload`` x1 mid-run (checkpoint, restart, resume), and j0
+  is rerun straight through ``BuiltJob`` to hold its losses;
+- ``saturn_session``: ``SaturnSession`` profiles two jobs empirically
+  and trains them through ``run(backend="local")``;
+- ``saturn_portfolio_fork``: the solver portfolio's MILP-vs-LNS races,
+  each forking a child for the MILP leg, while a worker trains.
 
 Every phase prints one JSON line and raises on failure.  The line
 before the last lists every ported kernel; the last line is
@@ -49,6 +68,7 @@ device or without the repo's ``src/repro_torch`` beside this script.
 """
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -68,8 +88,14 @@ SLSTM_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2 ** -8, 0.0)}
 RGLRU_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 RGLRU_RTOL = 1e-2
 TRAIN_B, TRAIN_S = 8, 512    # the JAX launcher's defaults (launch/train.py)
-TRAIN_STEPS = 3              # timed, after one warm-up step
+# timed steps, after one warm-up step (each step is host-bound, 6-20 s)
+TRAIN_STEPS = {"ddp": 2, "remat-offload": 1}
+CLI_STEPS = 2                # launch.train's steps in train_cli
 CHECK_B, CHECK_S = 4, 64     # train_check and train_resume, reduced config
+SATURN_B, SATURN_S = 8, 128  # the Saturn jobs' batch and sequence
+# saturn_restart: the segmented run's losses against a straight run of the
+# same steps on the same card, relative
+SATURN_LOSS_RTOL = 1e-6
 # train_check, CUDA against CPU at fp32: loss and grad_norm relative; the
 # parameters after one step at lr 1e-3 absolute (the CPU tests hold the
 # port to the JAX package at 1e-4 on xlstm-micro)
@@ -921,7 +947,8 @@ def train_step_phase():
     # the launcher's schedule for a 100-step run
     opt_cfg = AdamWConfig(lr=3e-4, total_steps=100, warmup_steps=5)
     batches = list(SyntheticLM(cfg, seed=0).batches(
-        TRAIN_B, TRAIN_S, num_batches=1 + TRAIN_STEPS, device="cuda"))
+        TRAIN_B, TRAIN_S, num_batches=1 + max(TRAIN_STEPS.values()),
+        device="cuda"))
     out = {}
     for tech in ("ddp", "remat-offload"):
         job = BuiltJob(cfg, lib.get(tech).plan(cfg, 1), opt_cfg,
@@ -930,8 +957,9 @@ def train_step_phase():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         params, opt, secs, losses, norms = timed_steps(
-            job.step, params, opt, map(job.place_batch, batches))
-        s_step = sorted(secs[1:])[len(secs[1:]) // 2]
+            job.step, params, opt,
+            map(job.place_batch, batches[:1 + TRAIN_STEPS[tech]]))
+        s_step = statistics.median(secs[1:])
         if tech == "ddp":
             # the step's forward alone (the loss, no autograd graph), and
             # how busy one more step keeps the device
@@ -1036,8 +1064,8 @@ def train_resume():
 
 
 def train_cli():
-    """``python -m repro_torch.launch.train`` at full width for 4 steps;
-    its checkpoint must verify."""
+    """``python -m repro_torch.launch.train`` at full width for
+    ``CLI_STEPS`` steps; its checkpoint must verify."""
     import os
     from repro_torch.checkpoint.store import verify_checkpoint
     root = Path(__file__).resolve().parent
@@ -1046,7 +1074,7 @@ def train_cli():
         stale.unlink()
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
            "xlstm-125m", "--technique", "ddp", "--devices", "1", "--steps",
-           "4", "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+           str(CLI_STEPS), "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
            "--log-every", "1", "--ckpt", str(ckpt)]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, env=dict(os.environ, PYTHONPATH=str(root / "src")),
@@ -1057,7 +1085,7 @@ def train_cli():
                              f"{r.stdout[-2000:]} {r.stderr[-4000:]}")
     steps = [ln for ln in r.stdout.splitlines() if ln.startswith("step")]
     meta = verify_checkpoint(str(ckpt))
-    if len(steps) != 4 or meta.get("step") != 4:
+    if len(steps) != CLI_STEPS or meta.get("step") != CLI_STEPS:
         raise AssertionError(f"launch.train: {steps} {meta}")
     return {"command": " ".join(cmd[1:]), "returncode": r.returncode,
             "seconds": seconds, "step_lines": steps,
@@ -1075,6 +1103,374 @@ def train_phases():
     emit("train_resume", **train_resume())
     emit("train_cli", **train_cli())
     check_no_launches("training")
+
+
+# ------------------------------------------------------- Saturn's loop
+
+def saturn_dir(name):
+    """A fresh checkpoint directory under build/saturn/ (git-ignored)."""
+    import shutil
+    d = Path(__file__).resolve().parent / "build" / "saturn" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def saturn_cleanup(d):
+    import shutil
+    import torch
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def saturn_lib():
+    from repro_torch.core.library import ParallelismLibrary
+    from repro_torch.parallelism.techniques import DDP, RematOffload
+    return ParallelismLibrary([DDP(), RematOffload()])
+
+
+def saturn_job(name, steps, lr=1e-3, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.core import Job
+    return Job(name, get_config("xlstm-125m"), SATURN_B, SATURN_S,
+               total_steps=steps, lr=lr, seed=seed)
+
+
+def steps_for(est, seconds, lo):
+    """bench_e2e's sizing: enough steps for ``seconds`` at the measured
+    step time ``est``, at least ``lo``."""
+    return max(lo, int(seconds / max(est, 1e-4)))
+
+
+def saturn_profiles(jobs, probes):
+    """The probe's trials as each job's profiles (bench_e2e's
+    mk_profiles)."""
+    from repro_torch.core.profiler import Profile
+    return {(j.name, t, 1): Profile(j.name, t, 1, p.step_time_s,
+                                    p.mem_per_device, p.feasible, p.source)
+            for j in jobs for t, p in probes.items()}
+
+
+def segments_of(stats):
+    return {name: {"segments": [
+        {k: seg[k] for k in ("technique", "start_step", "steps", "preempted",
+                             "compile_s", "measured_step_s", "first_loss",
+                             "last_loss")} for seg in st["segments"]]}
+        for name, st in stats.items()}
+
+
+def saturn_profile(hw):
+    """The empirical Trial Runner on a full-width probe job."""
+    from repro_torch.core import TrialRunner
+    runner = TrialRunner(saturn_lib(), hw, device="cuda")
+    probe = saturn_job("probe", 1)
+    t0 = time.perf_counter()
+    probes = {t: runner.profile(probe, t, 1, mode="empirical")
+              for t in ("ddp", "remat-offload")}
+    wall = time.perf_counter() - t0
+    for t, p in probes.items():
+        if not (p.feasible and math.isfinite(p.step_time_s)
+                and p.step_time_s > 0):
+            raise AssertionError(f"saturn_profile: {t} x1 trial {p}")
+    return {"config": probe.cfg.name, "batch": SATURN_B, "seq": SATURN_S,
+            "hardware": {"name": hw.name, "flops": hw.flops,
+                         "hbm_bw": hw.hbm_bw, "hbm_capacity": hw.hbm_capacity},
+            "trials": runner.trials, "wall_s": wall,
+            "trial": {t: {"ms_per_step": p.step_time_s * 1e3,
+                          "peak_gb": p.terms["peak_mem_bytes"] / 1e9,
+                          "mem_estimate_gb": p.mem_per_device / 1e9}
+                      for t, p in probes.items()}}, probes
+
+
+def saturn_fidelity(probes):
+    """bench_e2e scenario 1 at one device: one SaturnStatic plan of three
+    jobs, predicted by the SimBackend and executed for real."""
+    from repro_torch.core import ClusterSpec, LocalTorchBackend
+    from repro_torch.core.baselines import SaturnStatic
+    from repro_torch.core.executor import simulate
+    est = probes["ddp"].step_time_s
+    cluster = ClusterSpec(nodes=1, gpus_per_node=1, restart_cost_s=1.0)
+    jobs = [saturn_job(f"j{i}", steps_for(est, s, 2), lr, i)
+            for i, (s, lr) in enumerate([(6.0, 1e-3), (4.0, 3e-4),
+                                         (4.0, 1e-3)])]
+    profiles = saturn_profiles(jobs, probes)
+    predicted = simulate(jobs, SaturnStatic(time_limit_s=10), profiles,
+                         cluster, noise_sigma=0.0)
+    d = saturn_dir("fidelity")
+    be = LocalTorchBackend(library=saturn_lib(), ckpt_dir=str(d))
+    t0 = time.perf_counter()
+    executed = simulate(jobs, SaturnStatic(time_limit_s=10), profiles,
+                        cluster, noise_sigma=0.0, exec_backend=be)
+    wall = time.perf_counter() - t0
+    saturn_cleanup(d)
+    for j in jobs:
+        segs = executed.stats[j.name]["segments"]
+        if sum(s["steps"] for s in segs) != j.total_steps:
+            raise AssertionError(f"saturn_fidelity: {j.name} {segs}")
+    ratio = executed.makespan_s / predicted.makespan_s
+    if not 0.1 <= ratio <= 8.0:
+        raise AssertionError(f"saturn_fidelity: ratio {ratio} out of band")
+    # the segments' own step times (warm-up included); the rest of the
+    # executed makespan is set-up, checkpoints and the engine
+    step_s = sum(s["compile_s"] + (s["steps"] - 1) * (s["measured_step_s"]
+                                                      or 0.0)
+                 for j in jobs for s in executed.stats[j.name]["segments"])
+    return {"jobs": {j.name: j.total_steps for j in jobs},
+            "predicted_s": predicted.makespan_s,
+            "executed_s": executed.makespan_s, "ratio": ratio,
+            "executed_step_s": step_s,
+            "executed_other_s": executed.makespan_s - step_s,
+            "compile_total_s": sum(s["compile_s"] for j in jobs
+                                   for s in executed.stats[j.name]
+                                   ["segments"]),
+            "solver": executed.stats.get("solver"),
+            "wall_s": wall,
+            **segments_of({j.name: executed.stats[j.name] for j in jobs})}
+
+
+def flip_policy(target, total):
+    """bench_e2e's FlipWhenProgressed at one device: ``target`` moves
+    from ddp x1 to remat-offload x1 at the first replan that sees it
+    progress."""
+    from repro_torch.core.schedule import Policy, Schedule, ScheduleEntry
+
+    class FlipWhenProgressed(Policy):
+        name = "flip"
+        dynamic = True
+        replan_on_completion = False
+
+        def __init__(self):
+            self.flipped = False
+
+        def plan(self, jobs_, remaining, _profiles, _cluster, current):
+            if remaining.get(target, total) < total:
+                self.flipped = True
+            return Schedule([ScheduleEntry(
+                j.name, "remat-offload" if j.name == target and self.flipped
+                else "ddp", 1) for j in jobs_])
+
+    return FlipWhenProgressed()
+
+
+def straight_losses(job, segs):
+    """``job`` trained straight through BuiltJob, each segment's steps at
+    its technique, parameters kept on the card across the boundaries."""
+    import torch
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.parallelism.build import BuiltJob
+    lib = saturn_lib()
+    built = {t: BuiltJob(job.cfg, lib.get(t).plan(job.cfg, 1), job.opt_cfg,
+                         device="cuda")
+             for t in {s["technique"] for s in segs}}
+    params, opt = built[segs[0]["technique"]].init(job.seed)
+    data = SyntheticLM(job.cfg, seed=job.seed).batches(
+        job.batch_size, job.seq_len, num_batches=job.total_steps,
+        device="cuda")
+    losses = []
+    for seg in segs:
+        b = built[seg["technique"]]
+        for _ in range(seg["steps"]):
+            params, opt, m = b.step(params, opt, next(data))
+            losses.append(float(m["loss"]))
+    del params, opt
+    torch.cuda.empty_cache()
+    return losses
+
+
+def saturn_restart(probes):
+    """bench_e2e scenario 2 at one device: an introspection replan
+    preempts the training j0, which checkpoints, pays the restart penalty
+    and resumes from its step with the data stream continued."""
+    from repro_torch.core import ClusterSpec, LocalTorchBackend
+    from repro_torch.core.executor import simulate
+    est = probes["ddp"].step_time_s
+    cluster = ClusterSpec(nodes=1, gpus_per_node=1, restart_cost_s=1.0)
+    long_steps = steps_for(est, 8.0, 4)
+    jobs = [saturn_job("j0", long_steps)] + \
+        [saturn_job(f"j{i}", 2, seed=i) for i in (1, 2)]
+    d = saturn_dir("restart")
+    be = LocalTorchBackend(library=saturn_lib(), ckpt_dir=str(d))
+    t0 = time.perf_counter()
+    res = simulate(jobs, flip_policy("j0", long_steps),
+                   saturn_profiles(jobs, probes), cluster, noise_sigma=0.0,
+                   introspect_every_s=2.0 * est, exec_backend=be)
+    wall = time.perf_counter() - t0
+    saturn_cleanup(d)
+    segs = res.stats["j0"]["segments"]
+    for a, b in zip(segs, segs[1:]):
+        if b["start_step"] != a["start_step"] + a["steps"]:
+            raise AssertionError(f"saturn_restart: resume broke the chain "
+                                 f"{segs}")
+    if res.restarts < 1 or len(segs) < 2 or segs[0]["steps"] <= 0 or \
+            sum(s["steps"] for s in segs) != long_steps or \
+            segs[-1]["technique"] != "remat-offload":
+        raise AssertionError(f"saturn_restart: restarts {res.restarts}, "
+                             f"segments {segs}")
+    losses = [v for _, v in res.stats["j0"]["losses"]]
+    if not all(map(math.isfinite, losses)) or not be.observed:
+        raise AssertionError(f"saturn_restart: losses {losses}, observed "
+                             f"{be.observed}")
+    straight = straight_losses(jobs[0], segs)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, straight)]
+    if len(straight) != len(losses) or max(rel) > SATURN_LOSS_RTOL:
+        raise AssertionError(f"saturn_restart: segmented losses {losses} "
+                             f"against straight {straight}")
+    restart_s = [g.end_s - g.start_s for g in res.gantt
+                 if g.kind == "restart"]
+    return {"long_steps": long_steps, "restarts": res.restarts,
+            "replans": res.replans, "makespan_s": res.makespan_s,
+            "wall_s": wall, "restart_penalty_s": restart_s,
+            "resumed_step": segs[1]["start_step"],
+            "observed": {"/".join(map(str, k)): v
+                         for k, v in be.observed.items()},
+            "losses": losses, "straight_losses": straight,
+            "max_rel_loss_err": max(rel), "rtol": SATURN_LOSS_RTOL,
+            **segments_of({j.name: res.stats[j.name] for j in jobs})}
+
+
+def saturn_session(hw, probes):
+    """SaturnSession: empirical profiles of two jobs, then a run on this
+    machine's cards with introspection replans."""
+    import torch
+    from repro_torch.core import ClusterSpec, SaturnSession
+    est = probes["ddp"].step_time_s
+    sess = SaturnSession(ClusterSpec(nodes=1,
+                                     gpus_per_node=torch.cuda.device_count(),
+                                     restart_cost_s=1.0), hardware=hw)
+    jobs = sess.submit([saturn_job(f"s{i}", steps_for(est, 4.0, 2), lr, i)
+                        for i, lr in enumerate([1e-3, 3e-4])])
+    t0 = time.perf_counter()
+    profiles = sess.profile(mode="empirical", strategy="exhaustive")
+    profile_s = time.perf_counter() - t0
+    d = saturn_dir("session")
+    t0 = time.perf_counter()
+    res = sess.run(backend="local", introspect_every_s=2.0 * est,
+                   ckpt_dir=str(d))
+    wall = time.perf_counter() - t0
+    saturn_cleanup(d)
+    for j in jobs:
+        st = res.stats[j.name]
+        if sum(s["steps"] for s in st["segments"]) != j.total_steps or \
+                not all(math.isfinite(v) for _, v in st["losses"]):
+            raise AssertionError(f"saturn_session: {j.name} {st}")
+    solver = res.stats.get("solver", [])
+    return {"jobs": {j.name: {"steps": j.total_steps, "lr": j.lr}
+                     for j in jobs},
+            "profiles": {"/".join(map(str, k)): {
+                "ms_per_step": p.step_time_s * 1e3, "feasible": p.feasible}
+                for k, p in profiles.items()},
+            "trials": sess.runner.trials, "profile_s": profile_s,
+            "makespan_s": res.makespan_s, "wall_s": wall,
+            "replans": res.replans, "restarts": res.restarts,
+            "replan_wall_s": [(r["t"], r["wall_s"], r["status"])
+                              for r in solver],
+            "loss": {j.name: [res.stats[j.name]["losses"][0][1],
+                              res.stats[j.name]["losses"][-1][1]]
+                     for j in jobs},
+            **segments_of({j.name: res.stats[j.name] for j in jobs})}
+
+
+def solver_workload(n_jobs, total_gpus, seed=0):
+    """benchmarks/run.py's _solver_workload: synthetic jobs with varied
+    scaling efficiency on a geometric count grid."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import Job
+    from repro_torch.core.profiler import Profile
+    cfg = get_config("xlstm-125m").reduced()
+    rng = np.random.RandomState(seed)
+    counts = [1 << i for i in range(total_gpus.bit_length())]
+    jobs, profiles = [], {}
+    for i in range(n_jobs):
+        j = Job(f"j{i}", cfg, 8, 64, total_steps=int(rng.randint(150, 500)))
+        jobs.append(j)
+        base = rng.uniform(1.0, 4.0)
+        eff = rng.uniform(0.5, 0.95)
+        for g in counts:
+            for tech, mult in (("ddp", 1.0), ("fsdp", 1.1), ("gpipe", 1.25)):
+                profiles[(j.name, tech, g)] = Profile(
+                    j.name, tech, g, base * mult / g ** eff, 1e9, True, "t")
+    return jobs, profiles
+
+
+def saturn_portfolio_fork():
+    """The portfolio's MILP-vs-LNS race (the MILP leg in a forked child)
+    on bench_solver-sized workloads while a worker trains on the card."""
+    from repro_torch.core import ClusterSpec, LocalTorchBackend
+    from repro_torch.core.lns import validate_capacity
+    from repro_torch.core.portfolio import join_stragglers, solve_portfolio
+    from repro_torch.core.schedule import Placement, ScheduleEntry
+    from repro_torch.core.solver import pooled_choice_map
+    d = saturn_dir("portfolio")
+    job = saturn_job("w", 10 ** 6)
+    be = LocalTorchBackend(library=saturn_lib(), ckpt_dir=str(d))
+    be.bind([job], {}, ClusterSpec(nodes=1, gpus_per_node=1))
+    h = be.launch(job, ScheduleEntry("w", "ddp", 1), Placement((0,)),
+                  "default", job.total_steps, 0.0, 0)
+    w = h.worker
+    races = []
+    try:
+        while w.steps_done < 2 and not w.done.is_set():
+            w.done.wait(0.05)
+        alone_step_s = w.measured_step_s
+        steps0, t_races = w.steps_done, time.perf_counter()
+        for n_jobs in (8, 32):
+            jobs, profiles = solver_workload(n_jobs, total_gpus=64)
+            cm = pooled_choice_map(jobs, profiles)
+            for seed in (0, 1):
+                steps0, t0 = w.steps_done, time.perf_counter()
+                sol = solve_portfolio(jobs, cm, {None: 64},
+                                      wall_budget_s=2.0, seed=seed)
+                wall = time.perf_counter() - t0
+                join_stragglers()
+                if {a.job for a in sol.assignments} != \
+                        {j.name for j in jobs} or \
+                        not validate_capacity(sol.assignments, {None: 64}):
+                    raise AssertionError(f"saturn_portfolio_fork: "
+                                         f"infeasible {sol.telemetry}")
+                tel = sol.telemetry
+                races.append({
+                    "n_jobs": n_jobs, "seed": seed, "winner": tel["backend"],
+                    "status": tel["status"], "gap": tel["gap"],
+                    "wall_s": wall, "makespan_s": sol.makespan_s,
+                    "engines": {k: {"status": e.get("status"),
+                                    "wall_s": e.get("wall_s")}
+                                for k, e in tel["engines"].items()},
+                    "worker_steps_during": w.steps_done - steps0})
+        races_s = time.perf_counter() - t_races
+        race_steps = w.steps_done - steps0
+        if w.error is not None or w.done.is_set():
+            raise AssertionError(f"saturn_portfolio_fork: worker stopped "
+                                 f"({w.error!r})")
+    finally:
+        be.preempt(h, be.now())
+        saturn_cleanup(d)
+    return {"races": races,
+            "milp_wins": sum(r["winner"] == "milp" for r in races),
+            "worker_step_s_alone": alone_step_s,
+            "races_wall_s": races_s, "worker_steps_during_races": race_steps,
+            "worker_steps": w.steps_done,
+            "worker_step_s": w.measured_step_s}
+
+
+def saturn_phases(smi):
+    """Saturn's loop on full-width xlstm-125m jobs; the four kernel
+    counters stay at 0."""
+    from repro_torch.core import hardware_from_device
+    for f in kernel_wrappers().values():
+        f.launches = 0
+    hw = hardware_from_device("cuda")
+    info, probes = saturn_profile(hw)
+    emit("saturn_profile", nvidia_smi=smi, **info,
+         kernel_launches=check_no_launches("saturn_profile"))
+    emit("saturn_fidelity", nvidia_smi=smi, **saturn_fidelity(probes),
+         kernel_launches=check_no_launches("saturn_fidelity"))
+    emit("saturn_restart", nvidia_smi=smi, **saturn_restart(probes),
+         kernel_launches=check_no_launches("saturn_restart"))
+    emit("saturn_session", nvidia_smi=smi, **saturn_session(hw, probes),
+         kernel_launches=check_no_launches("saturn_session"))
+    emit("saturn_portfolio_fork", nvidia_smi=smi, **saturn_portfolio_fork(),
+         kernel_launches=check_no_launches("saturn_portfolio_fork"))
 
 
 def main():
@@ -1254,6 +1650,9 @@ def main():
 
     # ------------------------------------------------------- training
     train_phases()
+
+    # ------------------------------------------------- Saturn's loop
+    saturn_phases(smi)
     print(json.dumps({"kernels": [flash_line] + xlstm_lines
                       + rgemma_lines}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

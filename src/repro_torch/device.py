@@ -6,6 +6,8 @@ the port never drifts to the CPU on its own.  Tests pass ``"cpu"``.
 """
 from __future__ import annotations
 
+from typing import List
+
 import torch
 
 
@@ -16,3 +18,14 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {device!r} requested but no CUDA device is available; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def local_devices(device="cuda") -> List[torch.device]:
+    """The devices a scheduler may place work on: every card for a bare
+    ``"cuda"``, else the one device named.  Raises as
+    :func:`resolve_device` does without a card."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]

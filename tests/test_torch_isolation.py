@@ -28,6 +28,11 @@ from repro_torch.launch import train as launch_train
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallelism.build import BuiltJob
 from repro_torch.parallelism.techniques import DEFAULT_TECHNIQUES
+from repro_torch.core import (ClusterSpec, Job, LocalTorchBackend,
+                              SaturnSession, TrialRunner,
+                              hardware_from_device)
+from repro_torch.core.executor import LocalRunner
+from repro_torch.core.library import ParallelismLibrary
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -59,6 +64,10 @@ def test_port_imports_without_jax():
             "import repro_torch.launch.train, repro_torch.parallelism.build\n"
             "import repro_torch.checkpoint.store, repro_torch.core.library\n"
             "import repro_torch.data.synthetic, repro_torch.optim.adamw\n"
+            "import repro_torch.core, repro_torch.core.executor\n"
+            "import repro_torch.core.local_backend, repro_torch.core.lns\n"
+            "import repro_torch.core.portfolio, repro_torch.core.profiler\n"
+            "import repro_torch.data.traffic, repro_torch.serving.fleet\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
             "                     if sys.modules[m] is not None]\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
@@ -67,6 +76,17 @@ def test_port_imports_without_jax():
 
 def _cfg():
     return get_config("gemma3-4b").reduced()
+
+
+def _job():
+    return Job("j", get_config("xlstm-125m").reduced(), 1, 4, 2)
+
+
+def _session_run_local():
+    sess = SaturnSession(ClusterSpec(nodes=1, gpus_per_node=1))
+    sess.submit([_job()])
+    sess.profile(mode="napkin", strategy="exhaustive")
+    return sess.run(backend="local")
 
 
 ENTRY_POINTS = {
@@ -87,6 +107,14 @@ ENTRY_POINTS = {
     "launch.train": lambda: launch_train.main([
         "--arch", "xlstm-125m", "--reduced", "--technique", "ddp",
         "--devices", "1", "--steps", "1"]),
+    "TrialRunner.profile(empirical)": lambda: TrialRunner(
+        ParallelismLibrary()).profile(_job(), "ddp", 1, mode="empirical"),
+    "LocalTorchBackend.bind": lambda: LocalTorchBackend().bind(
+        [_job()], {}, ClusterSpec(nodes=1, gpus_per_node=1)),
+    "SaturnSession.run(local)": _session_run_local,
+    "LocalRunner.run_job": lambda: LocalRunner().run_job(
+        _job(), DEFAULT_TECHNIQUES[0], 1),
+    "hardware_from_device": lambda: hardware_from_device(),
 }
 
 
