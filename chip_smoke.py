@@ -33,15 +33,15 @@ kernels' launch counters held at 0 throughout:
 - ``train_check``: one train step of xlstm-125m.reduced() on the card
   and on the CPU from the same parameters and batch, held together;
 - ``train_step``: xlstm-125m at full width, B 8 x S 512, through
-  ``BuiltJob`` at ``ddp`` and at ``remat-offload``, one warm-up and two
-  timed steps at ``ddp`` (and the forward alone), one at
-  ``remat-offload``, then a warm-up and a timed step with the
+  ``BuiltJob`` at ``ddp`` and at ``remat-offload``, one warm-up and one
+  timed step at ``ddp`` (and the forward alone), the warm-up step alone
+  at ``remat-offload``, then a warm-up and a timed step with the
   batched-gradient sLSTM scan;
 - ``train_resume``: in a child process with deterministic algorithms on,
   four straight steps against two steps, a checkpoint, a resume and two
   more steps, bit-equal;
 - ``train_cli``: ``python -m repro_torch.launch.train`` at full width
-  for two steps, leaving a checkpoint that verifies.
+  for one step, leaving a checkpoint that verifies.
 
 Then Saturn's own loop (profile -> solve -> execute -> observe ->
 replan) on xlstm-125m jobs at full width, B 8 x S 128, fp32, with the
@@ -51,7 +51,7 @@ removed after each phase):
 - ``saturn_profile``: the empirical Trial Runner, one warm-up and two
   timed steps at ``ddp`` x1 and ``remat-offload`` x1, against the
   card's own ``HardwareSpec``;
-- ``saturn_fidelity``: three jobs under one SaturnStatic schedule,
+- ``saturn_fidelity``: two jobs under one SaturnStatic schedule,
   predicted by the SimBackend and executed by ``LocalTorchBackend``;
 - ``saturn_restart``: an introspection replan flips j0 from ``ddp`` x1
   to ``remat-offload`` x1 mid-run (checkpoint, restart, resume), and j0
@@ -60,6 +60,20 @@ removed after each phase):
   and trains them through ``run(backend="local")``;
 - ``saturn_portfolio_fork``: the solver portfolio's MILP-vs-LNS races,
   each forking a child for the MILP leg, while a worker trains.
+
+Then the process backend, each job segment in its own supervised child
+process (``ProcessTorchBackend``, started with ``spawn``):
+
+- ``proc_session``: ``SaturnSession(...).run(backend="process")`` of two
+  full-width jobs from napkin profiles, each job's losses held to a
+  straight ``BuiltJob`` run bit for bit, with each launch's seconds from
+  spawn to hello, warm-up, step, commit and largest heartbeat gap;
+- ``proc_recover``: the JAX package's ``bench_recover`` scenarios on
+  xlstm-micro (baseline, sigkill, hang, corrupt, a zero retry budget)
+  and one full-width sigkill, each recovered trajectory equal to the
+  uninterrupted one;
+- ``proc_portfolio``: the races of ``saturn_portfolio_fork`` while the
+  full-width worker trains in a child process instead of a thread.
 
 Every phase prints one JSON line and raises on failure.  The line
 before the last lists every ported kernel; the last line is
@@ -74,6 +88,7 @@ import sys
 import time
 from pathlib import Path
 
+T_IMPORT = time.perf_counter()
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
@@ -88,14 +103,24 @@ SLSTM_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2 ** -8, 0.0)}
 RGLRU_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 RGLRU_RTOL = 1e-2
 TRAIN_B, TRAIN_S = 8, 512    # the JAX launcher's defaults (launch/train.py)
-# timed steps, after one warm-up step (each step is host-bound, 6-20 s)
-TRAIN_STEPS = {"ddp": 2, "remat-offload": 1}
-CLI_STEPS = 2                # launch.train's steps in train_cli
+# timed steps, after one warm-up step (each step is host-bound, 6-20 s);
+# remat-offload runs its warm-up step alone
+TRAIN_STEPS = {"ddp": 1, "remat-offload": 0}
+CLI_STEPS = 1                # launch.train's steps in train_cli
 CHECK_B, CHECK_S = 4, 64     # train_check and train_resume, reduced config
 SATURN_B, SATURN_S = 8, 128  # the Saturn jobs' batch and sequence
 # saturn_restart: the segmented run's losses against a straight run of the
 # same steps on the same card, relative
 SATURN_LOSS_RTOL = 1e-6
+# the process backend's phases: full-width jobs of PROC_STEPS steps; the
+# recover scenarios on xlstm-micro (bench_recover's config) at
+# RECOVER_STEPS steps (the bench's quick run has 400), each fault deferred
+# to the second durable commit, and the bench's overhead gate, reported
+PROC_STEPS = 3
+PROC_LRS = (1e-3, 3e-4)
+RECOVER_STEPS = 100
+RECOVER_FAULT_T, RECOVER_MIN_STEP = 1.0, 20
+RECOVER_OVERHEAD_GATE = 4.0
 # train_check, CUDA against CPU at fp32: loss and grad_norm relative; the
 # parameters after one step at lr 1e-3 absolute (the CPU tests hold the
 # port to the JAX package at 1e-4 on xlstm-micro)
@@ -103,7 +128,10 @@ TRAIN_CHECK_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-4}
 
 
 def emit(phase, **kv):
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One JSON line; ``elapsed_s`` counts from this module's import."""
+    print(json.dumps({"phase": phase, **kv,
+                      "elapsed_s": time.perf_counter() - T_IMPORT}),
+          flush=True)
 
 
 def smi_line():
@@ -959,7 +987,7 @@ def train_step_phase():
         params, opt, secs, losses, norms = timed_steps(
             job.step, params, opt,
             map(job.place_batch, batches[:1 + TRAIN_STEPS[tech]]))
-        s_step = statistics.median(secs[1:])
+        s_step = statistics.median(secs[1:]) if secs[1:] else None
         if tech == "ddp":
             # the step's forward alone (the loss, no autograd graph), and
             # how busy one more step keeps the device
@@ -970,7 +998,8 @@ def train_step_phase():
             busy = device_busy(job.step, params, opt, batches[0])
         out[tech] = {"remat": job.plan.remat, "warmup_s": secs[0],
                      "step_s": secs[1:], "median_step_s": s_step,
-                     "tokens_per_s": TRAIN_B * TRAIN_S / s_step,
+                     "tokens_per_s": TRAIN_B * TRAIN_S / s_step
+                     if s_step else None,
                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                      "loss": losses, "grad_norm": norms}
         del params, opt
@@ -1183,7 +1212,7 @@ def saturn_profile(hw):
 
 
 def saturn_fidelity(probes):
-    """bench_e2e scenario 1 at one device: one SaturnStatic plan of three
+    """bench_e2e scenario 1 at one device: one SaturnStatic plan of two
     jobs, predicted by the SimBackend and executed for real."""
     from repro_torch.core import ClusterSpec, LocalTorchBackend
     from repro_torch.core.baselines import SaturnStatic
@@ -1191,8 +1220,7 @@ def saturn_fidelity(probes):
     est = probes["ddp"].step_time_s
     cluster = ClusterSpec(nodes=1, gpus_per_node=1, restart_cost_s=1.0)
     jobs = [saturn_job(f"j{i}", steps_for(est, s, 2), lr, i)
-            for i, (s, lr) in enumerate([(6.0, 1e-3), (4.0, 3e-4),
-                                         (4.0, 1e-3)])]
+            for i, (s, lr) in enumerate([(6.0, 1e-3), (4.0, 3e-4)])]
     profiles = saturn_profiles(jobs, probes)
     predicted = simulate(jobs, SaturnStatic(time_limit_s=10), profiles,
                          cluster, noise_sigma=0.0)
@@ -1286,8 +1314,7 @@ def saturn_restart(probes):
     est = probes["ddp"].step_time_s
     cluster = ClusterSpec(nodes=1, gpus_per_node=1, restart_cost_s=1.0)
     long_steps = steps_for(est, 8.0, 4)
-    jobs = [saturn_job("j0", long_steps)] + \
-        [saturn_job(f"j{i}", 2, seed=i) for i in (1, 2)]
+    jobs = [saturn_job("j0", long_steps), saturn_job("j1", 2, seed=1)]
     d = saturn_dir("restart")
     be = LocalTorchBackend(library=saturn_lib(), ckpt_dir=str(d))
     t0 = time.perf_counter()
@@ -1393,14 +1420,46 @@ def solver_workload(n_jobs, total_gpus, seed=0):
     return jobs, profiles
 
 
-def saturn_portfolio_fork():
-    """The portfolio's MILP-vs-LNS race (the MILP leg in a forked child)
-    on bench_solver-sized workloads while a worker trains on the card."""
-    from repro_torch.core import ClusterSpec, LocalTorchBackend
+def portfolio_races(steps_of):
+    """The portfolio's MILP-vs-LNS races (the MILP leg in a forked child)
+    on bench_solver-sized workloads: 8 and 32 jobs on 64 GPUs, seeds 0
+    and 1, 2 s each.  ``steps_of()`` reads a training worker's step
+    count; returns the races, their wall seconds and the worker's steps
+    during them."""
     from repro_torch.core.lns import validate_capacity
     from repro_torch.core.portfolio import join_stragglers, solve_portfolio
-    from repro_torch.core.schedule import Placement, ScheduleEntry
     from repro_torch.core.solver import pooled_choice_map
+    races = []
+    steps_start, t_races = steps_of(), time.perf_counter()
+    for n_jobs in (8, 32):
+        jobs, profiles = solver_workload(n_jobs, total_gpus=64)
+        cm = pooled_choice_map(jobs, profiles)
+        for seed in (0, 1):
+            steps0, t0 = steps_of(), time.perf_counter()
+            sol = solve_portfolio(jobs, cm, {None: 64}, wall_budget_s=2.0,
+                                  seed=seed)
+            wall = time.perf_counter() - t0
+            join_stragglers()
+            if {a.job for a in sol.assignments} != {j.name for j in jobs} \
+                    or not validate_capacity(sol.assignments, {None: 64}):
+                raise AssertionError(f"portfolio race: infeasible "
+                                     f"{sol.telemetry}")
+            tel = sol.telemetry
+            races.append({
+                "n_jobs": n_jobs, "seed": seed, "winner": tel["backend"],
+                "status": tel["status"], "gap": tel["gap"],
+                "wall_s": wall, "makespan_s": sol.makespan_s,
+                "engines": {k: {"status": e.get("status"),
+                                "wall_s": e.get("wall_s")}
+                            for k, e in tel["engines"].items()},
+                "worker_steps_during": steps_of() - steps0})
+    return races, time.perf_counter() - t_races, steps_of() - steps_start
+
+
+def saturn_portfolio_fork():
+    """The portfolio's races while a worker thread trains on the card."""
+    from repro_torch.core import ClusterSpec, LocalTorchBackend
+    from repro_torch.core.schedule import Placement, ScheduleEntry
     d = saturn_dir("portfolio")
     job = saturn_job("w", 10 ** 6)
     be = LocalTorchBackend(library=saturn_lib(), ckpt_dir=str(d))
@@ -1408,37 +1467,11 @@ def saturn_portfolio_fork():
     h = be.launch(job, ScheduleEntry("w", "ddp", 1), Placement((0,)),
                   "default", job.total_steps, 0.0, 0)
     w = h.worker
-    races = []
     try:
         while w.steps_done < 2 and not w.done.is_set():
             w.done.wait(0.05)
         alone_step_s = w.measured_step_s
-        steps0, t_races = w.steps_done, time.perf_counter()
-        for n_jobs in (8, 32):
-            jobs, profiles = solver_workload(n_jobs, total_gpus=64)
-            cm = pooled_choice_map(jobs, profiles)
-            for seed in (0, 1):
-                steps0, t0 = w.steps_done, time.perf_counter()
-                sol = solve_portfolio(jobs, cm, {None: 64},
-                                      wall_budget_s=2.0, seed=seed)
-                wall = time.perf_counter() - t0
-                join_stragglers()
-                if {a.job for a in sol.assignments} != \
-                        {j.name for j in jobs} or \
-                        not validate_capacity(sol.assignments, {None: 64}):
-                    raise AssertionError(f"saturn_portfolio_fork: "
-                                         f"infeasible {sol.telemetry}")
-                tel = sol.telemetry
-                races.append({
-                    "n_jobs": n_jobs, "seed": seed, "winner": tel["backend"],
-                    "status": tel["status"], "gap": tel["gap"],
-                    "wall_s": wall, "makespan_s": sol.makespan_s,
-                    "engines": {k: {"status": e.get("status"),
-                                    "wall_s": e.get("wall_s")}
-                                for k, e in tel["engines"].items()},
-                    "worker_steps_during": w.steps_done - steps0})
-        races_s = time.perf_counter() - t_races
-        race_steps = w.steps_done - steps0
+        races, races_s, race_steps = portfolio_races(lambda: w.steps_done)
         if w.error is not None or w.done.is_set():
             raise AssertionError(f"saturn_portfolio_fork: worker stopped "
                                  f"({w.error!r})")
@@ -1451,6 +1484,274 @@ def saturn_portfolio_fork():
             "races_wall_s": races_s, "worker_steps_during_races": race_steps,
             "worker_steps": w.steps_done,
             "worker_step_s": w.measured_step_s}
+
+
+# ------------------------------------------- supervised worker processes
+
+def launch_log(stats, names):
+    """Each launch's supervision timings: seconds from spawn to hello,
+    the warm-up step, the mean step after it, the last checkpoint's
+    commit and the largest gap between heartbeats."""
+    return {n: [{k: seg[k] for k in (
+        "technique", "start_step", "steps", "failed", "hello_s",
+        "compile_s", "measured_step_s", "commit_s", "max_hb_gap_s")}
+        for seg in stats[n]["segments"]] for n in names}
+
+
+def trajectory(res, name):
+    """Absolute step -> loss, last write wins: steps replayed after a
+    salvage overwrite their pre-crash records."""
+    return dict(res.stats[name]["losses"])
+
+
+def proc_session(probes, straight):
+    """SaturnSession.run(backend="process"): two full-width jobs, each
+    segment in its own supervised child on the card, from napkin
+    profiles; each job's losses held to a straight BuiltJob run."""
+    from repro_torch.checkpoint.store import verify_checkpoint
+    from repro_torch.core import ClusterSpec, SaturnSession
+    sess = SaturnSession(ClusterSpec(nodes=1, gpus_per_node=1),
+                         library=saturn_lib(), device="cuda")
+    jobs = sess.submit([saturn_job(f"p{i}", PROC_STEPS, lr, i)
+                        for i, lr in enumerate(PROC_LRS)])
+    sess.profile(mode="napkin", strategy="exhaustive")
+    d = saturn_dir("proc_session")
+    t0 = time.perf_counter()
+    res = sess.run(backend="process", ckpt_dir=str(d))
+    wall = time.perf_counter() - t0
+    try:
+        durable = {j.name: verify_checkpoint(str(d / f"{j.name}.npz"))["step"]
+                   for j in jobs}
+    finally:
+        saturn_cleanup(d)
+    out = {}
+    for j in jobs:
+        segs = res.stats[j.name]["segments"]
+        got = trajectory(res, j.name)
+        if res.worker_failures or res.quarantined or \
+                sum(s["steps"] for s in segs) != j.total_steps or \
+                sorted(got) != list(range(1, j.total_steps + 1)) or \
+                durable[j.name] != j.total_steps:
+            raise AssertionError(f"proc_session: {j.name} {segs} "
+                                 f"{durable} {res.quarantined}")
+        ref = straight(j, segs)
+        err = max(abs(got[s + 1] - v) for s, v in enumerate(ref))
+        if err != 0.0:
+            raise AssertionError(f"proc_session: {j.name} losses "
+                                 f"{got} against straight {ref}")
+        out[j.name] = {"losses": [got[s] for s in sorted(got)],
+                       "max_abs_loss_err": err}
+    return {"jobs": out, "makespan_s": res.makespan_s, "wall_s": wall,
+            "replans": res.replans, "restarts": res.restarts,
+            "trial_step_s": {t: p.step_time_s for t, p in probes.items()},
+            "launches": launch_log(res.stats, [j.name for j in jobs])}
+
+
+def recover_run(jobs, name, chaos=None, ckpt_every_steps=10, **backend_kw):
+    """One bench_recover run: CurrentPractice on one card, each segment
+    in a supervised child; returns the result and its wall seconds."""
+    from repro_torch.core import ClusterSpec, ProcessTorchBackend
+    from repro_torch.core.baselines import CurrentPractice
+    from repro_torch.core.executor import simulate
+    from repro_torch.core.profiler import Profile
+    profiles = {(j.name, "ddp", 1): Profile(j.name, "ddp", 1, 0.01, 1e9,
+                                            True, "t") for j in jobs}
+    d = saturn_dir(f"recover_{name}")
+    be = ProcessTorchBackend(library=saturn_lib(), ckpt_dir=str(d),
+                             ckpt_every_steps=ckpt_every_steps, **backend_kw)
+    t0 = time.perf_counter()
+    try:
+        res = simulate(jobs, CurrentPractice(), profiles,
+                       ClusterSpec(nodes=1, gpus_per_node=1,
+                                   restart_cost_s=0.5),
+                       exec_backend=be, chaos=chaos)
+    finally:
+        be.shutdown()
+        saturn_cleanup(d)
+    return res, time.perf_counter() - t0
+
+
+def recover_jobs():
+    """bench_recover's job (xlstm-micro, benchmarks/run.py:818-820) and
+    proc_session's first full-width job."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import Job
+    cfg = dataclasses.replace(
+        get_config("xlstm-125m").reduced(), d_model=64, num_heads=2,
+        num_kv_heads=2, head_dim=32, name="xlstm-micro")
+    return [Job("j0", cfg, 2, 32, total_steps=RECOVER_STEPS, lr=1e-3,
+                seed=0)], saturn_job("p0", PROC_STEPS)
+
+
+def recover_runs():
+    """bench_recover's scenarios on the card (benchmarks/run.py:791-917):
+    xlstm-micro, a checkpoint every 10 steps, each fault deferred to the
+    second durable commit (step 20): the baseline, sigkill, hang,
+    corrupt and a zero retry budget; beside them one sigkill at full
+    width.  The six runs go at once, each with its own backend and
+    children (a spawn costs seconds, and the bench's runs in turn would
+    not fit the time limit), so every run shares the host and the card
+    with the others."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core.chaos import ChaosTrace, RetryPolicy, WorkerFault
+    jobs, job = recover_jobs()
+
+    def fault(kind, name="j0", min_step=RECOVER_MIN_STEP):
+        return ChaosTrace((WorkerFault(RECOVER_FAULT_T, kind, name,
+                                       min_step=min_step),))
+
+    runs = {"base": (jobs, None, {}),
+            "sigkill": (jobs, fault("sigkill"), {}),
+            "hang": (jobs, fault("hang"), {}),
+            "corrupt": (jobs, fault("corrupt"), {}),
+            "quarantine": (jobs, fault("sigkill"),
+                           {"retry_policy": RetryPolicy(budget=0)}),
+            # full width: the 1.48 GB chain under supervision, killed at
+            # the first durable commit (step 2) and resumed from it
+            "full": ([job], fault("sigkill", "p0", 2),
+                     {"ckpt_every_steps": 2})}
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = {k: pool.submit(recover_run, js, k, chaos, **kw)
+                   for k, (js, chaos, kw) in runs.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
+def proc_recover(out, straight):
+    """Holds ``recover_runs``' results to bench_recover's gates: sigkill,
+    hang and corrupt land the uninterrupted trajectory exactly, the zero
+    budget quarantines; the full-width run equals a straight BuiltJob
+    run (``straight``, as in ``proc_session``)."""
+    jobs, job = recover_jobs()
+    base, wall_base = out["base"]
+    t_base = trajectory(base, "j0")
+    if base.worker_failures or base.quarantined or \
+            sorted(t_base) != list(range(1, RECOVER_STEPS + 1)):
+        raise AssertionError(f"proc_recover: baseline {base.stats['j0']}")
+    scenarios = {}
+    for kind in ("sigkill", "hang", "corrupt"):
+        res, wall = out[kind]
+        t_f = trajectory(res, "j0")
+        segs = res.stats["j0"]["segments"]
+        err = max(abs(t_base[s] - t_f[s]) for s in t_base) \
+            if set(t_f) == set(t_base) else float("inf")
+        scenarios[kind] = {
+            "worker_failures": res.worker_failures,
+            "restarts": res.restarts, "segments": len(segs),
+            "resumed_step": segs[-1]["start_step"],
+            "makespan_s": res.makespan_s, "wall_s": wall,
+            "overhead_x": res.makespan_s / base.makespan_s,
+            "traj_max_err": err, "failed": segs[0]["failed"],
+            "launches": launch_log(res.stats, ["j0"])["j0"]}
+        if res.worker_failures < 1 or res.restarts < 1 or res.quarantined \
+                or err != 0.0:
+            raise AssertionError(f"proc_recover: {kind} {scenarios[kind]}")
+    resq, wallq = out["quarantine"]
+    reason = resq.quarantined.get("j0", "")
+    if "retry budget exhausted" not in reason:
+        raise AssertionError(f"proc_recover: quarantine {resq.quarantined}")
+
+    full, wall_full = out["full"]
+    segs = full.stats["p0"]["segments"]
+    got = trajectory(full, "p0")
+    if full.worker_failures < 1 or full.restarts < 1 or full.quarantined \
+            or segs[-1]["start_step"] != 2 \
+            or sorted(got) != list(range(1, PROC_STEPS + 1)):
+        raise AssertionError(f"proc_recover: full width {segs}")
+    ref = straight(job, [{"technique": "ddp", "steps": PROC_STEPS}])
+    full_err = max(abs(got[s + 1] - v) for s, v in enumerate(ref))
+    if full_err != 0.0:
+        raise AssertionError(f"proc_recover: full width losses {got} "
+                             f"against straight {ref}")
+    return {"config": jobs[0].cfg.name, "steps": RECOVER_STEPS,
+            "concurrent_runs": len(out),
+            "fault_t_s": RECOVER_FAULT_T, "fault_min_step": RECOVER_MIN_STEP,
+            "baseline_makespan_s": base.makespan_s,
+            "baseline_wall_s": wall_base,
+            "baseline_launches": launch_log(base.stats, ["j0"])["j0"],
+            "scenarios": scenarios,
+            "recover_traj_err": max(v["traj_max_err"]
+                                    for v in scenarios.values()),
+            "recover_overhead_x": max(v["overhead_x"]
+                                      for v in scenarios.values()),
+            "overhead_gate_x": RECOVER_OVERHEAD_GATE, "overhead_gated": False,
+            "recover_completes": 1.0,
+            "quarantine": {"reason": reason, "wall_s": wallq,
+                           "worker_failures": resq.worker_failures},
+            "full_width": {
+                "config": job.cfg.name, "batch": job.batch_size,
+                "seq": job.seq_len, "steps": PROC_STEPS,
+                "ckpt_every_steps": 2, "min_step": 2,
+                "worker_failures": full.worker_failures,
+                "restarts": full.restarts, "makespan_s": full.makespan_s,
+                "wall_s": wall_full, "losses": [got[s] for s in sorted(got)],
+                "straight_losses": ref, "max_abs_loss_err": full_err,
+                "launches": launch_log(full.stats, ["p0"])["p0"]}}
+
+
+def proc_portfolio():
+    """The races of saturn_portfolio_fork while the full-width worker
+    trains in a ProcessTorchBackend child instead of a thread (C4)."""
+    from repro_torch.core import ClusterSpec, ProcessTorchBackend
+    from repro_torch.core.schedule import Placement, ScheduleEntry
+    d = saturn_dir("proc_portfolio")
+    job = saturn_job("w", 10 ** 6)
+    be = ProcessTorchBackend(library=saturn_lib(), ckpt_dir=str(d))
+    be.bind([job], {}, ClusterSpec(nodes=1, gpus_per_node=1))
+    h = be.launch(job, ScheduleEntry("w", "ddp", 1), Placement((0,)),
+                  "default", job.total_steps, 0.0, 0)
+    p = h.worker
+    try:
+        while p.measured_step_s is None and not p.done.is_set():
+            p.done.wait(0.05)     # two steps seen after the warm-up
+        alone_step_s = p.measured_step_s
+        races, races_s, race_steps = portfolio_races(lambda: p.hb_steps)
+        if p.done.is_set():
+            raise AssertionError(f"proc_portfolio: worker stopped "
+                                 f"({p.error_reason or p.fail_hint})")
+    finally:
+        be.shutdown()       # kills the child: no final checkpoint to wait on
+        saturn_cleanup(d)
+    if race_steps < 1:
+        raise AssertionError(f"proc_portfolio: no step in {races_s} s of "
+                             f"races ({races})")
+    return {"races": races,
+            "milp_wins": sum(r["winner"] == "milp" for r in races),
+            "worker_step_s_alone": alone_step_s,
+            "races_wall_s": races_s, "worker_steps_during_races": race_steps,
+            "races_wall_over_alone_step": races_s / alone_step_s,
+            "worker_steps": p.raw_steps, "worker_step_s": p.measured_step_s,
+            "hello_s": p.hello_s, "max_hb_gap_s": p.max_hb_gap_s}
+
+
+def proc_phases(smi, probes):
+    """The process backend's phases; the four kernel counters of this
+    process stay at 0 (the children train on the plain paths).  A job's
+    straight run is made once for the segments it is held to."""
+    from concurrent.futures import ThreadPoolExecutor
+    runs = {}
+
+    def straight(job, segs):
+        key = (job, tuple((s["technique"], s["steps"]) for s in segs))
+        if key not in runs:
+            runs[key] = straight_losses(job, segs)
+        return runs[key]
+
+    # the recover runs' children train while this process makes the
+    # straight runs proc_session's jobs are likely held to (one ddp
+    # segment each); a session that segments differently makes its own
+    with ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(recover_runs)
+        for i, lr in enumerate(PROC_LRS):
+            straight(saturn_job(f"p{i}", PROC_STEPS, lr, i),
+                     [{"technique": "ddp", "steps": PROC_STEPS}])
+        recovered = pending.result()
+    emit("proc_recover", nvidia_smi=smi, **proc_recover(recovered, straight),
+         kernel_launches=check_no_launches("proc_recover"))
+    emit("proc_session", nvidia_smi=smi, **proc_session(probes, straight),
+         kernel_launches=check_no_launches("proc_session"))
+    emit("proc_portfolio", nvidia_smi=smi, **proc_portfolio(),
+         kernel_launches=check_no_launches("proc_portfolio"))
 
 
 def saturn_phases(smi):
@@ -1471,6 +1772,7 @@ def saturn_phases(smi):
          kernel_launches=check_no_launches("saturn_session"))
     emit("saturn_portfolio_fork", nvidia_smi=smi, **saturn_portfolio_fork(),
          kernel_launches=check_no_launches("saturn_portfolio_fork"))
+    proc_phases(smi, probes)
 
 
 def main():

@@ -20,6 +20,10 @@ Layering (each layer only imports downward):
     local_backend.py LocalTorchBackend: the same Schedule IR really
                      trains on this machine's devices (checkpointed
                      preemption, measured-throughput feedback)
+    process_backend.py  ProcessTorchBackend: the same, one supervised
+                     worker process a job segment (heartbeats, sigkill /
+                     hang / corrupt fault injection, salvage, retry,
+                     quarantine)
     profiler.py      the Trial Runner: empirical trials and the napkin
                      roofline, the JSON profile cache, HardwareSpec
     perfmodel.py     throughput curves over GPU count: anchor trials +
@@ -37,10 +41,10 @@ Layering (each layer only imports downward):
     executor.py      simulate() compatibility wrapper + legacy comparator,
                      LocalRunner serial building block
     api.py           SaturnSession facade
-                     (run(backend="sim"|"local"))
+                     (run(backend="sim"|"local"|"process"))
 
-Not ported yet: the process backend (ROADMAP A6) and the analytic and
-roofline profiling that read compiled HLO (A12).
+Not ported yet: the analytic and roofline profiling that read compiled
+HLO (ROADMAP A12), and jobs of more than one GPU (process groups, A11).
 """
 from .api import SaturnSession                              # noqa: F401
 from .chaos import (CapacityChange, ChaosTrace,             # noqa: F401
@@ -56,6 +60,7 @@ from .perfmodel import (MergedProfiles, ObservedProfiles,   # noqa: F401
 from .placement import ClassPool, FlatPool, NodeAware, make_backend  # noqa: F401
 from .portfolio import (SolverBackend, available_backends,  # noqa: F401
                         register_backend, solve_portfolio)
+from .process_backend import ProcessTorchBackend            # noqa: F401
 from .profiler import (HARDWARE, HardwareSpec,              # noqa: F401
                        TrialRunner, hardware_from_device)
 from .runtime import (ExecutionBackend, SimBackend,         # noqa: F401

@@ -13,9 +13,9 @@ with ``arrival_s > 0`` enter the system online, and dynamic policies
 replan on arrivals and introspection ticks with real restart penalties.
 
 ``device`` ("cuda" by default) is where empirical trials and
-``run(backend="local")`` train: every card for "cuda" (a run without a
-card raises), or the CPU standing in for each of the cluster's GPUs for
-"cpu".
+``run(backend="local"|"process")`` train: every card for "cuda" (a run
+without a card raises), or the CPU standing in for each of the
+cluster's GPUs for "cpu".
 """
 from __future__ import annotations
 
@@ -178,10 +178,13 @@ class SaturnSession:
         trains the models on this session's devices via
         :class:`~repro_torch.core.local_backend.LocalTorchBackend` —
         checkpointed preemption, wall-clock introspection intervals, and
-        measured step times fed back into the replans; ``"process"``,
-        which isolates every job in a supervised worker process, is not
-        ported yet and raises ``NotImplementedError`` (ROADMAP A6).
-        ``ckpt_dir`` (local) pins where checkpoints land.
+        measured step times fed back into the replans; ``"process"``
+        trains the same way but isolates every job segment in a
+        supervised worker process
+        (:class:`~repro_torch.core.process_backend.ProcessTorchBackend`:
+        heartbeats, crash detection, checkpoint salvage, retry and
+        quarantine; each worker with an interpreter of its own).
+        ``ckpt_dir`` (local/process) pins where checkpoints land.
 
         ``placement`` overrides ``cluster.placement`` for this run.
 
@@ -227,10 +230,6 @@ class SaturnSession:
         if backend not in ("sim", "local", "process"):
             raise ValueError(f"unknown execution backend {backend!r}; "
                              f"expected 'sim', 'local' or 'process'")
-        if backend == "process":
-            raise NotImplementedError(
-                "backend='process' (supervised worker processes) is not "
-                "ported yet (ROADMAP A6); use backend='local'")
         if ckpt_dir is not None and backend == "sim":
             raise ValueError(
                 "ckpt_dir only applies to backend='local'/'process'")
@@ -247,6 +246,11 @@ class SaturnSession:
             from .local_backend import LocalTorchBackend
             exec_backend = LocalTorchBackend(self.library, ckpt_dir=ckpt_dir,
                                              devices=self._devices())
+        elif backend == "process":
+            from .process_backend import ProcessTorchBackend
+            exec_backend = ProcessTorchBackend(self.library,
+                                               ckpt_dir=ckpt_dir,
+                                               devices=self._devices())
         profiles, fleets = self.profiles, None
         if self.serves:
             from ..serving.fleet import FleetManager, serve_profiles
@@ -259,9 +263,13 @@ class SaturnSession:
                                   window_s=serve_window_s,
                                   util_cap=serve_util_cap,
                                   adaptive=serve_adaptive)
-        return simulate(self.jobs, policy, profiles, cluster,
-                        introspect_every_s=introspect_every_s
-                        if policy.dynamic else None,
-                        noise_sigma=noise_sigma,
-                        exec_backend=exec_backend, chaos=chaos,
-                        fleets=fleets)
+        try:
+            return simulate(self.jobs, policy, profiles, cluster,
+                            introspect_every_s=introspect_every_s
+                            if policy.dynamic else None,
+                            noise_sigma=noise_sigma,
+                            exec_backend=exec_backend, chaos=chaos,
+                            fleets=fleets)
+        finally:
+            if backend == "process":
+                exec_backend.shutdown()

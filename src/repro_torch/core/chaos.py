@@ -92,7 +92,7 @@ class CapacityChange(ClusterEvent):
 @dataclasses.dataclass(frozen=True)
 class WorkerFault(ClusterEvent):
     """Fault-INJECTION command for fault-capable execution backends
-    (a process-isolated backend; not ported yet, ROADMAP A6): at
+    (the :class:`~repro_torch.core.process_backend.ProcessTorchBackend`): at
     ``t`` the harness really hurts a live worker —
 
     - ``"sigkill"``: SIGKILL the worker process mid-step (no chance to

@@ -437,6 +437,8 @@ class LocalTorchBackend(ExecutionBackend):
             "measured_step_s": w.measured_step_s,
             "first_loss": w.losses[0][1] if w.losses else None,
             "last_loss": w.losses[-1][1] if w.losses else None,
+            # a worker process's supervision timings
+            **getattr(w, "segment_stats", {}),
         }
         st = self.job_stats.setdefault(
             handle.job.name, {"segments": [], "losses": []})

@@ -204,7 +204,7 @@ class ExecutionBackend:
         raise RuntimeError(
             f"execution backend {self.kind!r} cannot inject worker "
             f"faults (kind={fault.kind!r}); use a process-isolated "
-            f"backend (not ported yet: ROADMAP A6)")
+            f"backend such as ProcessTorchBackend")
 
     # ---------------------------------------------------------- estimates
     def est_step(self, job: str, tech: str, g: int,

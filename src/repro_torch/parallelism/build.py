@@ -29,7 +29,7 @@ class BuiltJob:
         if plan.n_devices > 1:
             raise NotImplementedError(
                 f"{plan.technique} at {plan.n_devices} devices: multi-device "
-                "execution is not ported yet (ROADMAP A6, A11)")
+                "execution is not ported yet (ROADMAP A11)")
         if plan.technique not in SINGLE_DEVICE_TECHNIQUES:
             raise NotImplementedError(
                 f"technique {plan.technique!r} is not ported yet "

@@ -29,8 +29,8 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallelism.build import BuiltJob
 from repro_torch.parallelism.techniques import DEFAULT_TECHNIQUES
 from repro_torch.core import (ClusterSpec, Job, LocalTorchBackend,
-                              SaturnSession, TrialRunner,
-                              hardware_from_device)
+                              ProcessTorchBackend, SaturnSession,
+                              TrialRunner, hardware_from_device)
 from repro_torch.core.executor import LocalRunner
 from repro_torch.core.library import ParallelismLibrary
 
@@ -66,6 +66,8 @@ def test_port_imports_without_jax():
             "import repro_torch.data.synthetic, repro_torch.optim.adamw\n"
             "import repro_torch.core, repro_torch.core.executor\n"
             "import repro_torch.core.local_backend, repro_torch.core.lns\n"
+            "import repro_torch.core.process_backend\n"
+            "import repro_torch.train.process_worker\n"
             "import repro_torch.core.portfolio, repro_torch.core.profiler\n"
             "import repro_torch.data.traffic, repro_torch.serving.fleet\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
@@ -82,11 +84,11 @@ def _job():
     return Job("j", get_config("xlstm-125m").reduced(), 1, 4, 2)
 
 
-def _session_run_local():
+def _session_run(backend):
     sess = SaturnSession(ClusterSpec(nodes=1, gpus_per_node=1))
     sess.submit([_job()])
     sess.profile(mode="napkin", strategy="exhaustive")
-    return sess.run(backend="local")
+    return sess.run(backend=backend)
 
 
 ENTRY_POINTS = {
@@ -111,7 +113,10 @@ ENTRY_POINTS = {
         ParallelismLibrary()).profile(_job(), "ddp", 1, mode="empirical"),
     "LocalTorchBackend.bind": lambda: LocalTorchBackend().bind(
         [_job()], {}, ClusterSpec(nodes=1, gpus_per_node=1)),
-    "SaturnSession.run(local)": _session_run_local,
+    "ProcessTorchBackend.bind": lambda: ProcessTorchBackend().bind(
+        [_job()], {}, ClusterSpec(nodes=1, gpus_per_node=1)),
+    "SaturnSession.run(local)": lambda: _session_run("local"),
+    "SaturnSession.run(process)": lambda: _session_run("process"),
     "LocalRunner.run_job": lambda: LocalRunner().run_job(
         _job(), DEFAULT_TECHNIQUES[0], 1),
     "hardware_from_device": lambda: hardware_from_device(),

@@ -21,8 +21,9 @@ seq 32, as benchmarks/run.py's e2e scenarios run it).
   remat-offload x1 for 4 more from the checkpoint), from the same
   start checkpoint, gives per-step losses within atol 2e-5, the
   tolerance of tests/test_torch_train.py's 20-step trajectory.
-- A session trains two jobs through backend="local"; backend="process"
-  raises, naming ROADMAP A6.
+- A session trains two jobs through backend="local", then again through
+  backend="process" (tests/test_torch_process_backend.py holds the
+  process backend itself).
 - The portfolio's forked MILP leg completes while a torch worker thread
   trains.
 
@@ -422,8 +423,16 @@ def test_session_trains_two_jobs_locally(tmp_path):
         assert all(math.isfinite(v) for _, v in st["losses"])
         assert os.path.exists(tmp_path / f"{j.name}.npz")
     assert res.makespan_s > 0 and res.replans >= 1
-    with pytest.raises(NotImplementedError, match="A6"):
-        sess.run(backend="process")
+    proc = sess.run(backend="process", ckpt_dir=str(tmp_path / "proc"),
+                    time_limit_s=5)
+    assert proc.worker_failures == 0 and proc.quarantined == {}
+    for j in jobs:
+        st = proc.stats[j.name]
+        assert sum(s["steps"] for s in st["segments"]) == j.total_steps
+        assert len({s for s, _ in st["losses"]}) == j.total_steps
+        assert all(math.isfinite(v) for _, v in st["losses"])
+        assert all(s["hello_s"] > 0 for s in st["segments"])
+        assert os.path.exists(tmp_path / "proc" / f"{j.name}.npz")
     with pytest.raises(ValueError):
         sess.run(backend="remote")
 
