@@ -17,7 +17,13 @@ weights from a seed, in bf16:
 - recurrentgemma-2b at full width: a batched prefill with the RG-LRU
   scan kernel in its 18 recurrent layers and flash attention in its 8
   window-2048 layers, greedy decode from the prefill's state, and the
-  engine answering 8 requests.
+  engine answering 8 requests;
+- olmoe-1b-7b at full width (16 layers, 64 experts, top-8): one MoE
+  block on the card against the CPU (``moe_check``: equal routes, two
+  bf16 runs bit-equal), a batched prefill with flash attention in all
+  16 layers and the share of routed pairs dropped at capacity, greedy
+  decode from the prefill's caches, the engine answering 8 requests and
+  ``measure_serve_step_time`` at full width.
 
 Flash attention is also held against its plain version at the head dims
 the kernels pad (D 120, h2o-danube-3-4b; D 160, stablelm-12b) in both
@@ -30,8 +36,10 @@ Then training, in fp32 on the model's plain paths (the kernels have no
 backward, and the JAX package trains without them), with the four
 kernels' launch counters held at 0 throughout:
 
-- ``train_check``: one train step of xlstm-125m.reduced() on the card
-  and on the CPU from the same parameters and batch, held together;
+- ``train_check`` and ``moe_train_check``: one train step of
+  xlstm-125m.reduced() and of olmoe-1b-7b.reduced() (its loss with the
+  MoE aux) through ``BuiltJob`` on the card and on the CPU from the same
+  parameters and batch, held together;
 - ``train_step``: xlstm-125m at full width, B 8 x S 512, through
   ``BuiltJob`` at ``ddp`` and at ``remat-offload``, one warm-up and one
   timed step at ``ddp`` (and the forward alone), the warm-up step alone
@@ -125,6 +133,12 @@ RECOVER_OVERHEAD_GATE = 4.0
 # parameters after one step at lr 1e-3 absolute (the CPU tests hold the
 # port to the JAX package at 1e-4 on xlstm-micro)
 TRAIN_CHECK_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-4}
+# moe_check: one olmoe-1b-7b MoE block, B 2 x S 256, fp32, CUDA against
+# the CPU: gate weights (probabilities <= 1, a few ulps) absolute, the
+# output relative to its largest value (fp32 products of depth 2048 and
+# 1024, TF32 off)
+MOE_CHECK_B, MOE_CHECK_S = 2, 256
+MOE_W_ATOL, MOE_FP32_RTOL = 1e-6, 1e-5
 
 
 def emit(phase, **kv):
@@ -850,6 +864,232 @@ def rgemma_phases(gen):
     return [flash_line, rglru_line]
 
 
+def moe_check():
+    """One block of olmoe-1b-7b's MoE FFN at full width (d 2048, E 64,
+    top-8, d_ff_expert 1024) on the card against the CPU, B 2 x S 256.
+
+    fp32, x on a grid of 2^-2 and the router on one of 2^-12: every
+    partial sum of x @ router is exact, so both devices route from the
+    same logits, in which ties are frequent.  The routes (top-k in order,
+    the token of every slot, where every (token, k) pair landed) must be
+    equal, the gate weights within ``MOE_W_ATOL`` and the output within
+    ``MOE_FP32_RTOL`` of its largest value; then the same with the router
+    zeroed (every probability equal: experts 0..7 for every token, each
+    over capacity).  bf16, at the prefill's B 4 x S 4096: two runs on the
+    card bit-equal (the combine adds in a fixed order, no atomics), and
+    the routing and the whole FFN timed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    cfg = get_config("olmoe-1b-7b")
+    k, b, s = cfg.moe.top_k, MOE_CHECK_B, MOE_CHECK_S
+    cap = moe.moe_capacity(cfg, s)
+    gen = torch.Generator().manual_seed(0)
+    p = init_params(moe.moe_spec(cfg), seed=0, device="cpu")
+    p["router"] = torch.round(p["router"] * 2 ** 12) / 2 ** 12
+    x = torch.round(torch.randn(b, s, cfg.d_model, generator=gen) * 4
+                    ).clamp(-16, 16) / 4
+    out = {"batch": b, "seq": s, "capacity": cap}
+    for name, router in (("grid", p["router"]),
+                         ("zero_router", torch.zeros_like(p["router"]))):
+        pc = dict(p, router=router)
+        pg = {n: t.cuda() for n, t in pc.items()}
+        rc, rg = moe.route(pc, x, cfg, cap), moe.route(pg, x.cuda(), cfg, cap)
+        for field in ("top_idx", "tok_of_slot", "slot_of_pair"):
+            if not torch.equal(getattr(rc, field), getattr(rg, field).cpu()):
+                raise AssertionError(f"moe_check {name}: {field} differs "
+                                     "between the card and the CPU")
+        if name == "zero_router" and not bool(
+                (rc.top_idx == torch.arange(k)).all()):
+            raise AssertionError("moe_check: a zeroed router must pick "
+                                 "experts 0..k-1")
+        w_err = float((rg.w_of_slot.cpu() - rc.w_of_slot).abs().max())
+        yc = moe.moe_ffn(pc, x, cfg)[0]
+        yg = moe.moe_ffn(pg, x.cuda(), cfg)[0].cpu()
+        rel = float((yg - yc).abs().max() / yc.abs().max())
+        if w_err > MOE_W_ATOL or rel > MOE_FP32_RTOL:
+            raise AssertionError(f"moe_check {name}: gate weights {w_err} "
+                                 f"(bound {MOE_W_ATOL}), output {rel} "
+                                 f"(bound {MOE_FP32_RTOL})")
+        top = torch.sort(torch.softmax((x @ router).float(), -1), -1,
+                         descending=True)[0][..., :k + 1]
+        out[name] = {
+            "routes_equal": True, "w_of_slot_max_err": w_err,
+            "out_rel_err": rel,
+            "tokens_with_a_tie_in_top_k_plus_1": int(
+                (top[..., 1:] == top[..., :-1]).any(-1).sum()),
+            "dropped_share": float((rc.slot_of_pair < 0).float().mean())}
+    del pg, yg, rg
+    pb = {n: t.to("cuda", torch.bfloat16) for n, t in p.items()}
+    xb = torch.randn(PREFILL_B, PREFILL_S, cfg.d_model,
+                     generator=gen).to("cuda", torch.bfloat16)
+    y1, y2 = moe.moe_ffn(pb, xb, cfg)[0], moe.moe_ffn(pb, xb, cfg)[0]
+    if not torch.equal(y1, y2):
+        raise AssertionError("moe_check: two bf16 runs on the card differ")
+    big_cap = moe.moe_capacity(cfg, PREFILL_S)
+    n_pairs = PREFILL_B * PREFILL_S * k
+    expert_flops = (6.0 * PREFILL_B * cfg.moe.num_experts * big_cap
+                    * cfg.d_model * cfg.moe.d_ff_expert)
+    out["bf16_prefill_shape"] = {
+        "batch": PREFILL_B, "seq": PREFILL_S, "capacity": big_cap,
+        "bit_equal_runs": True,
+        "route_ms": time_ms(lambda: moe.route(pb, xb, cfg, big_cap), runs=5),
+        "moe_ffn_ms": time_ms(lambda: moe.moe_ffn(pb, xb, cfg), runs=5),
+        "expert_flops_with_padding": expert_flops,
+        "expert_bound_ms": expert_flops / PEAK_FLOPS["bfloat16"] * 1e3,
+        "routed_pairs": n_pairs}
+    out["tol"] = {"w_of_slot": MOE_W_ATOL, "out_rel": MOE_FP32_RTOL}
+    return out
+
+
+def moe_drops(cfg, params, batch):
+    """The share of (token, k) pairs dropped at capacity in each layer
+    of one prefill, read from the routes ``moe_ffn`` computes."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import prefill_forward
+    shares, route = [], moe.route
+
+    def recording(*args):
+        r = route(*args)
+        shares.append(float((r.slot_of_pair < 0).float().mean()))
+        return r
+    moe.route = recording
+    try:
+        prefill_forward(params, cfg, batch)
+    finally:
+        moe.route = route
+    torch.cuda.synchronize()
+    return shares
+
+
+def prefill_flops(cfg, b, s):
+    """FLOPs of one MoE prefill: the attention projections, flash
+    attention's live pairs, the router and every expert's whole slab
+    (padding slots included), as the model computes them."""
+    from repro_torch.models.moe import moe_capacity
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    proj = 2.0 * b * s * d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+    attn = 4.0 * hd * live_pairs(s, 0) * b * cfg.num_heads
+    m = cfg.moe
+    experts = (6.0 * b * m.num_experts * moe_capacity(cfg, s) * d
+               * m.d_ff_expert)
+    router = 2.0 * b * s * d * m.num_experts
+    return cfg.num_layers * (proj + attn + experts + router)
+
+
+def olmoe_phases(gen):
+    """The MoE slice: flash attention at olmoe-1b-7b's shape, the MoE FFN
+    on the card against the CPU, the full-width prefill through flash
+    attention in all 16 layers, decode from its caches, the engine and
+    ``measure_serve_step_time``.  Returns the kernels line's entry for
+    flash attention at this model's shape."""
+    import torch
+    from repro_torch.configs import concrete_batch, get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.models.params import param_count
+    from repro_torch.models.transformer import (init_model, model_spec,
+                                                prefill_forward)
+    from repro_torch.serving.profile import measure_serve_step_time
+
+    cfg = get_config("olmoe-1b-7b")
+    hd = cfg.resolved_head_dim
+    main_f = kernel_case(flash_attention, flash_attention_plain, gen,
+                         PREFILL_B, PREFILL_S, cfg.num_heads,
+                         cfg.num_kv_heads, hd, 0, torch.bfloat16, 2e-2)
+    emit("olmoe_flash", case=main_f)
+    emit("moe_check", **moe_check())
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- prefill
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model_spec(cfg))
+    if not 6.4e9 <= n_params <= 7.4e9:
+        raise AssertionError(f"olmoe param_count {n_params}")
+    batch = concrete_batch(cfg, PREFILL_B, PREFILL_S, device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_forward(params, cfg, batch)          # warm-up (cuBLAS)
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits, pstate = prefill_forward(params, cfg, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    if launches != cfg.num_layers or cfg.num_layers != 16:
+        raise AssertionError(f"olmoe prefill: {launches} flash launches, "
+                             f"expected 16")
+    if logits.shape != (PREFILL_B, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("olmoe prefill logits not finite / wrong shape")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layer_err = []
+    prefill_forward(params, cfg, batch, opts={
+        "attn_fn": comparing_attention(layer_err, flash_attention,
+                                       flash_attention_plain, 2e-2)})
+    if len(layer_err) != cfg.num_layers or max(layer_err) > 1.0:
+        raise AssertionError(f"olmoe per-layer flash error {layer_err}")
+    drops = moe_drops(cfg, params, batch)
+    flops = prefill_flops(cfg, PREFILL_B, PREFILL_S)
+    emit("olmoe_prefill", config=cfg.name, param_count=n_params,
+         batch=PREFILL_B, seq=PREFILL_S, init_s=init_s, prefill_s=prefill_s,
+         prefill_tokens_per_s=PREFILL_B * PREFILL_S / prefill_s,
+         flash_launches=launches, layer_err=layer_err,
+         layer_err_means="max |out-ref|/(2e-2 (P|V| + |ref|))",
+         capacity=moe_capacity(cfg, PREFILL_S), dropped_share=drops,
+         mean_dropped_share=statistics.mean(drops),
+         prefill_flops=flops,
+         prefill_bound_ms=flops / PEAK_FLOPS["bfloat16"] * 1e3,
+         peak_mem_gb=peak_gb)
+
+    # ------------------------------------------------------ generate
+    state = seeded_state(cfg, pstate, PREFILL_B, PREFILL_S,
+                         PREFILL_S + GEN_TOKENS)
+    del pstate
+    toks, gen_s = greedy(cfg, params, logits, state, GEN_TOKENS - 1)
+    expert_bytes = 2.0 * 3 * cfg.num_layers * cfg.moe.num_experts * \
+        cfg.d_model * cfg.moe.d_ff_expert
+    emit("olmoe_generate", tokens=GEN_TOKENS, batch=PREFILL_B,
+         decode_steps=GEN_TOKENS - 1, seconds=gen_s,
+         step_ms=gen_s / (GEN_TOKENS - 1) * 1e3,
+         tokens_per_s=PREFILL_B * (GEN_TOKENS - 1) / gen_s,
+         expert_bytes_a_step=expert_bytes,
+         expert_bytes_bound_ms=expert_bytes / PEAK_BYTES * 1e3,
+         first_tokens=toks[0, :8].tolist())
+    del state, logits
+
+    # --------------------------------------------------------- serve
+    serve_s, served = serve_requests(cfg, params, seed=4)
+    del params
+    torch.cuda.empty_cache()
+    step_s = measure_serve_step_time(cfg, reduce_model=False, device="cuda")
+    torch.cuda.empty_cache()
+    emit("olmoe_serve", seconds=serve_s, **served,
+         measure_serve_step_time_s=step_s,
+         measure_serve_step_time_dtype="float32")
+
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:28",
+        "launches": launches, "max_abs_err": main_f["max_err"],
+        "ms": launches * main_f["kernel_ms"],
+        "plain_ms": launches * main_f["plain_ms"],
+        "bound_ms": launches * main_f["bound_ms"],
+        "bound_by": main_f["bound_by"],
+        "library_ms": launches * main_f["library_ms"],
+        "per": f"one olmoe-1b-7b prefill: {launches} global launches at "
+               f"B {PREFILL_B}, S {PREFILL_S}, H {cfg.num_heads}, "
+               f"Kv {cfg.num_kv_heads}, D {hd}, bf16"}
+
+
 def kernel_wrappers():
     from repro_torch.kernels.ops import (flash_attention, mlstm_chunk,
                                          rglru_scan, slstm_step_scan)
@@ -875,32 +1115,45 @@ def max_leaf_diff(a, b):
     return worst
 
 
-def train_check():
-    """One fp32 train step of xlstm-125m.reduced() on the card and on the
-    CPU from the same parameters and SyntheticLM batch."""
-    import torch
-    from repro_torch.configs import get_config
+def steps_on_cpu_and_card(cfg, params):
+    """One fp32 train step of ``cfg`` through ``BuiltJob`` at ``ddp`` on
+    the CPU and on the card, from the same CPU ``params`` and SyntheticLM
+    batch.  Returns {device: (params, opt, metrics)}."""
+    from repro_torch.core.library import ParallelismLibrary
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models.params import tree_map
-    from repro_torch.models.transformer import init_model
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
-    from repro_torch.train.steps import make_train_step
-    cfg = get_config("xlstm-125m").reduced()
-    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
-                                            total_steps=100))
+    from repro_torch.parallelism.build import BuiltJob
     batch = next(SyntheticLM(cfg, seed=0).batches(CHECK_B, CHECK_S,
                                                   device="cpu"))
     out = {}
     for dev in ("cpu", "cuda"):
-        params = tree_map(lambda t: t.to(dev),
-                          init_model(cfg, seed=3, device="cpu"))
-        out[dev] = step(params, init_opt_state(params),
-                        {k: v.to(dev) for k, v in batch.items()})
+        job = BuiltJob(cfg, ParallelismLibrary().get("ddp").plan(cfg, 1),
+                       AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100),
+                       device=dev)
+        # a copy on each device: the step updates its parameters in place
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        out[dev] = job.step(p, init_opt_state(p), job.place_batch(batch))
+    return out
+
+
+def step_errors(out):
+    """Loss and grad_norm |cuda - cpu| / |cpu|."""
+    (_, _, mc), (_, _, mg) = out["cpu"], out["cuda"]
+    return {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+            for k in ("loss", "grad_norm")}
+
+
+def train_check():
+    """One fp32 train step of xlstm-125m.reduced() on the card and on the
+    CPU from the same parameters and SyntheticLM batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    cfg = get_config("xlstm-125m").reduced()
+    out = steps_on_cpu_and_card(cfg, init_model(cfg, seed=3, device="cpu"))
     (pc, oc, mc), (pg, og, mg) = out["cpu"], out["cuda"]
-    rel = lambda k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
     param_err, leaf = max_leaf_diff(pg, pc)
-    err = {"loss": rel("loss"), "grad_norm": rel("grad_norm"),
-           "params": param_err}
+    err = {**step_errors(out), "params": param_err}
     if any(err[k] > TRAIN_CHECK_TOL[k] for k in err) or \
             int(og["step"]) != 1:
         raise AssertionError(f"train_check: CUDA step against CPU step {err} "
@@ -910,6 +1163,68 @@ def train_check():
             "err_means": "loss, grad_norm: |cuda - cpu| / |cpu|; params: "
                          "max |cuda - cpu| after the step",
             "loss": {"cuda": float(mg["loss"]), "cpu": float(mc["loss"])}}
+
+
+def moe_train_check():
+    """One fp32 train step of olmoe-1b-7b.reduced() (cross-entropy plus
+    the MoE aux loss) on the card and on the CPU, as ``train_check``.
+
+    wq, wk and wv are rescaled to a fan-in of d_model, as the CPU parity
+    tests do (tests/test_torch_model.py): on the raw init a 1e-7 relative
+    change of the parameters alone moves the gradients by 3e-4 of their
+    scale (measured on the CPU).  AdamW's first step moves a parameter by
+    lr * g / (|g| + eps): where a gradient cancels to |g| ~ eps (on the
+    CPU one element of wk had g = 1.5e-9, and -7.4e-10 after that 1e-7
+    change, rescaled), one ulp of it moves the parameter by up to lr.
+    So the parameters are held at ``TRAIN_CHECK_TOL`` where |g| >= 100
+    eps on the CPU, every element's error is reported, and the gradients
+    themselves (the first moment, (1 - b1) g, after the step) are held
+    leafwise relative to their largest value at the grad_norm
+    tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import (tree_leaves_with_paths,
+                                           tree_map_with_path)
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = get_config("olmoe-1b-7b").reduced()
+    heads = {"wq": cfg.num_heads, "wk": cfg.num_kv_heads,
+             "wv": cfg.num_kv_heads}
+    params = tree_map_with_path(
+        lambda path, t: t * math.sqrt(heads[path[-1]] / cfg.d_model)
+        if path[-1] in heads else t, init_model(cfg, seed=3, device="cpu"))
+    out = steps_on_cpu_and_card(cfg, params)
+    (pc, oc, mc), (pg, og, mg) = out["cpu"], out["cuda"]
+    eps, b1 = AdamWConfig().eps, AdamWConfig().b1
+    grad_err, param_err, ill, worst = 0.0, 0.0, 0, max_leaf_diff(pg, pc)
+    for (_, muc), (_, mug), (_, xc), (_, xg) in zip(
+            tree_leaves_with_paths(oc["mu"]), tree_leaves_with_paths(og["mu"]),
+            tree_leaves_with_paths(pc), tree_leaves_with_paths(pg)):
+        mug = mug.cpu()
+        grad_err = max(grad_err, float((mug - muc).abs().max()
+                                       / muc.abs().max().clamp_min(1e-30)))
+        g = muc.abs() / (1 - b1)
+        sound = g >= 100 * eps
+        ill += int(((g > 0) & ~sound).sum())
+        param_err = max(param_err, float(
+            ((xg.cpu() - xc).abs() * sound).max()))
+    err = {**step_errors(out), "grads": grad_err, "params": param_err}
+    tol = {**TRAIN_CHECK_TOL, "grads": TRAIN_CHECK_TOL["grad_norm"]}
+    if any(err[k] > tol[k] for k in err) or int(og["step"]) != 1 or \
+            not float(mg["aux_loss"]) > 0.0:
+        raise AssertionError(f"moe_train_check: CUDA step against CPU step "
+                             f"{err}, bound {tol}")
+    n = sum(t.numel() for _, t in tree_leaves_with_paths(pc))
+    return {"config": cfg.name, "batch": CHECK_B, "seq": CHECK_S,
+            "err": err, "tol": tol,
+            "err_means": "loss, grad_norm: |cuda - cpu| / |cpu|; grads: "
+                         "max |cuda - cpu| / max |cpu| of each leaf's first "
+                         "moment; params: max |cuda - cpu| after the step "
+                         "where |g| >= 100 eps",
+            "params_err_everywhere": worst[0], "worst_param_leaf": worst[1],
+            "elements_with_0_lt_g_lt_100_eps": ill, "elements": n,
+            "loss": {"cuda": float(mg["loss"]), "cpu": float(mc["loss"])},
+            "aux_loss": {"cuda": float(mg["aux_loss"]),
+                         "cpu": float(mc["aux_loss"])}}
 
 
 def timed_steps(step, params, opt, batches):
@@ -1127,6 +1442,8 @@ def train_phases():
     for f in kernel_wrappers().values():
         f.launches = 0
     emit("train_check", **train_check())
+    emit("moe_train_check", **moe_train_check(),
+         kernel_launches=check_no_launches("moe_train_check"))
     emit("train_step", **train_step_phase(),
          kernel_launches=check_no_launches("train_step"))
     emit("train_resume", **train_resume())
@@ -1950,13 +2267,17 @@ def main():
     rgemma_lines = rgemma_phases(gen)
     torch.cuda.empty_cache()
 
+    # ---------------------------------------------------- olmoe (MoE)
+    olmoe_line = olmoe_phases(gen)
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------- training
     train_phases()
 
     # ------------------------------------------------- Saturn's loop
     saturn_phases(smi)
     print(json.dumps({"kernels": [flash_line] + xlstm_lines
-                      + rgemma_lines}), flush=True)
+                      + rgemma_lines + [olmoe_line]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

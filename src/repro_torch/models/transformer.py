@@ -1,7 +1,9 @@
 """Composable decoder covering the ported architecture families: the
-attention families (``attn`` / ``swa`` mixers with a dense FFN), xLSTM
-(``mlstm`` / ``slstm`` mixers, no FFN) and RecurrentGemma (``rglru``
-and ``swa`` mixers with a dense FFN).
+attention families (``attn`` / ``swa`` mixers with a dense FFN), MoE
+(``attn`` mixers with the Mixture-of-Experts FFN of ``moe.py``, whose
+load-balance loss is the forward's aux), xLSTM (``mlstm`` / ``slstm``
+mixers, no FFN) and RecurrentGemma (``rglru`` and ``swa`` mixers with a
+dense FFN).
 
 Layers follow ``cfg.block_pattern``; repeats of the pattern run as a
 Python loop over params stacked along a leading dim (the JAX package's
@@ -28,18 +30,16 @@ from ..kernels.ops import kernel_opts
 from .config import ATTN, MLSTM, RECURRENT, RGLRU, SLSTM, SWA, ModelConfig
 from .layers import (attention, attention_spec, attn_cache_spec, ffn,
                      ffn_spec, rmsnorm, rmsnorm_spec)
+from .moe import moe_ffn, moe_spec
 from .params import P, init_params, stack_specs, tree_map, tree_map_with_path
 from .recurrent import (mlstm_block, mlstm_block_spec, mlstm_state_spec,
                         rglru_block, rglru_block_spec, rglru_state_spec,
                         slstm_block, slstm_block_spec, slstm_state_spec)
 
 
-def _check_kind(cfg: ModelConfig, kind: str):
+def _check_kind(kind: str):
     if kind not in (ATTN, SWA, RGLRU, MLSTM, SLSTM):
         raise ValueError(kind)
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported yet (ROADMAP A8)")
 
 
 # ------------------------------------------------------------------ specs
@@ -50,10 +50,10 @@ _MIXER_SPECS = {ATTN: attention_spec, SWA: attention_spec,
 
 
 def block_spec(cfg: ModelConfig, kind: str):
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     spec: Dict[str, Any] = {"mixer": _MIXER_SPECS[kind](cfg)}
-    if cfg.d_ff:
-        spec["ffn"] = ffn_spec(cfg)
+    if cfg.d_ff or cfg.is_moe:
+        spec["ffn"] = moe_spec(cfg) if cfg.is_moe else ffn_spec(cfg)
     return spec
 
 
@@ -85,7 +85,7 @@ def init_model(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 
 def _block_cache_spec(cfg: ModelConfig, kind: str, batch: int, length: int,
                       dtype):
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     if kind == RGLRU:
         return rglru_state_spec(cfg, batch, dtype)
     if kind == MLSTM:
@@ -144,7 +144,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, length: int,
 
 def _block_apply(p, x, *, kind, cfg: ModelConfig, cache=None, positions=None,
                  pos=None, opts=None, prefill=False):
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     opts = opts or {}
     h = rmsnorm(p["mixer"]["norm"], x, cfg.norm_eps)
     if kind == RGLRU:
@@ -170,7 +170,11 @@ def _block_apply(p, x, *, kind, cfg: ModelConfig, cache=None, positions=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in p:
         h2 = rmsnorm(p["ffn"]["norm"], x, cfg.norm_eps)
-        x = x + ffn(p["ffn"], h2)
+        if cfg.is_moe:
+            y2, aux = moe_ffn(p["ffn"], h2, cfg)
+        else:
+            y2 = ffn(p["ffn"], h2)
+        x = x + y2
     return x, nc, aux
 
 

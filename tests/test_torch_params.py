@@ -25,15 +25,6 @@ from repro_torch.models.params import (param_count, params_from_numpy,
 from repro_torch.models.transformer import init_model, model_spec
 
 
-def _ported(cfg):
-    """The attention families with a dense FFN, xLSTM (mLSTM and sLSTM
-    mixers) and RecurrentGemma (RG-LRU mixers) are ported; the MoE
-    configs raise NotImplementedError naming their ROADMAP item."""
-    return cfg.moe is None and all(
-        k in ("attn", "swa", "rglru", "mlstm", "slstm")
-        for k in cfg.block_pattern)
-
-
 def _jax_spec_leaves(cfg):
     flat, _ = jax.tree_util.tree_flatten_with_path(jax_model_spec(cfg),
                                                    is_leaf=jax_is_spec)
@@ -54,11 +45,9 @@ def test_config_copy_matches(arch):
 
 @pytest.mark.parametrize("arch", JAX_ARCH_IDS)
 def test_model_spec_matches(arch):
+    """Every config's spec, the MoE ones' (L, E, d, f) expert leaves
+    and their scale-0.1 router included."""
     cfg = get_config(arch)
-    if not _ported(cfg):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            model_spec(cfg)
-        return
     spec = model_spec(cfg)
     ours = {"/".join(p): (s.shape, s.axes, s.init, s.scale)
             for p, s in tree_leaves_with_paths(spec)}
@@ -97,6 +86,24 @@ def test_numpy_round_trip_recurrentgemma():
     assert mixer["w_rec_gate"].shape == (1, r, r)
     assert mixer["conv"]["w"].shape == (1, cfg.conv_width, r)
     np.testing.assert_array_equal(mixer["lam"].numpy(), 4.0)
+    back = params_to_numpy(params)
+    assert back.keys() == flat.keys()
+    for key in flat:
+        np.testing.assert_array_equal(back[key], flat[key])
+
+
+def test_numpy_round_trip_moe():
+    """olmoe-1b-7b.reduced(): the router and the (L, E, d, f) expert
+    leaves, stacked under the scanned group, carry across and back bit
+    for bit."""
+    cfg = jax_get_config("olmoe-1b-7b").reduced()
+    flat = _flatten_with_paths(jax_init_model(cfg, jax.random.PRNGKey(0)))
+    params = params_from_numpy(flat, device="cpu")
+    ffn = params["groups"][0]["pos0_attn"]["ffn"]
+    m, d, n = cfg.moe, cfg.d_model, cfg.num_layers
+    assert ffn["router"].shape == (n, d, m.num_experts)
+    assert ffn["wi_gate"].shape == (n, m.num_experts, d, m.d_ff_expert)
+    assert ffn["wo"].shape == (n, m.num_experts, m.d_ff_expert, d)
     back = params_to_numpy(params)
     assert back.keys() == flat.keys()
     for key in flat:

@@ -7,9 +7,10 @@ seq 32, as benchmarks/run.py's e2e scenarios run it).
   tp x1 (outside its search space) and ddp x2 (the port's BuiltJob
   raises NotImplementedError, a RuntimeError) infeasible.
 - The analytic mode and the roofline strategy raise, naming ROADMAP A12.
-- Napkin profiles equal the JAX package's exactly (the same closed form
-  over the same parameter counts), and the profile cache round-trips
-  through the JAX package's JSON both ways.
+- Napkin profiles of every arch, the MoE ones included, equal the JAX
+  package's exactly (the same closed form over the same parameter
+  counts), and the profile cache round-trips through the JAX package's
+  JSON both ways.
 - Both of ``bench_e2e``'s scenarios pass on
   ``LocalTorchBackend(devices=["cpu", "cpu"])`` with the benchmark's own
   asserts; the port runs one device a job, so the restart scenario flips
@@ -128,8 +129,7 @@ def test_hlo_modes_raise_naming_a12():
         hardware_from_device("cpu")
 
 
-NAPKIN_ARCHS = [a for a in ARCH_IDS
-                if get_config(a).moe is None]
+NAPKIN_ARCHS = list(ARCH_IDS)
 
 
 def _napkin_jobs(pkg_get_config, JobCls):
@@ -160,11 +160,22 @@ def test_napkin_profiles_equal_the_reference():
 
 
 def test_napkin_moe_is_not_ported_yet():
+    """The MoE configs, once refused here (ROADMAP A8), now profile: a
+    napkin profile of each at every technique and count equals the
+    reference's, its compute term from the active (top-k of E) share
+    of the parameters."""
     moe = [a for a in ARCH_IDS if get_config(a).moe is not None]
-    assert moe
-    with pytest.raises(NotImplementedError, match="A8"):
-        TrialRunner(ParallelismLibrary()).profile(
-            Job("m", get_config(moe[0]), 8, 512, 100), "ddp", 1, "napkin")
+    assert len(moe) == 2
+    port = TrialRunner(ParallelismLibrary(), HARDWARE["a100"])
+    ref = JTrialRunner(JLibrary(), JHARDWARE["a100"])
+    for arch in moe:
+        job = Job("m", get_config(arch), 8, 512, 100)
+        jjob = JJob("m", jax_get_config(arch), 8, 512, 100)
+        for tech in ParallelismLibrary().names():
+            for g in (1, 8):
+                a = port.profile(job, tech, g, "napkin")
+                b = ref.profile(jjob, tech, g, "napkin")
+                assert dataclasses.asdict(a) == dataclasses.asdict(b)
 
 
 def test_profile_cache_round_trips_through_the_reference(tmp_path, probes):
