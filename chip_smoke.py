@@ -51,6 +51,18 @@ kernels' launch counters held at 0 throughout:
 - ``train_cli``: ``python -m repro_torch.launch.train`` at full width
   for one step, leaving a checkpoint that verifies.
 
+Then process groups (``parallelism.dist``; the one card holds one rank
+of NCCL, which refuses two ranks on one device, so the multi-rank checks
+are ``tests/test_torch_parallelism.py`` on the CPU and
+``python -m repro_torch.testing.parallel_check ARCH --ranks 4 --device
+cuda`` on four cards):
+
+- ``par_group1``: xlstm-125m at full width, B 8 x S 128, ``ddp`` and
+  ``remat-offload`` two steps each through ``BuiltJob`` as rank 0 of a
+  world-size-1 NCCL group, held bit for bit (losses, grad norms, every
+  parameter) against the no-group ``BuiltJob``, with the group's
+  set-up, NCCL's version, s a step and peak memory.
+
 Then Saturn's own loop (profile -> solve -> execute -> observe ->
 replan) on xlstm-125m jobs at full width, B 8 x S 128, fp32, with the
 kernel counters still held at 0 (checkpoints under ``build/saturn/``,
@@ -70,7 +82,8 @@ removed after each phase):
   each forking a child for the MILP leg, while a worker trains.
 
 Then the process backend, each job segment in its own supervised child
-process (``ProcessTorchBackend``, started with ``spawn``):
+process (``ProcessTorchBackend``, started with ``spawn``), each child
+rank 0 of a world-size-1 NCCL group:
 
 - ``proc_session``: ``SaturnSession(...).run(backend="process")`` of two
   full-width jobs from napkin profiles, each job's losses held to a
@@ -139,6 +152,10 @@ TRAIN_CHECK_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "params": 1e-4}
 # 1024, TF32 off)
 MOE_CHECK_B, MOE_CHECK_S = 2, 256
 MOE_W_ATOL, MOE_FP32_RTOL = 1e-6, 1e-5
+# par_group1: full-width xlstm-125m at the Saturn jobs' shape, PAR_STEPS
+# steps a technique, as rank 0 of a world-size-1 NCCL group and without a
+# group
+PAR_STEPS = 2
 
 
 def emit(phase, **kv):
@@ -1451,6 +1468,88 @@ def train_phases():
     check_no_launches("training")
 
 
+# ------------------------------------------------- process groups
+
+def par_group1():
+    """xlstm-125m at full width, fp32, B 8 x S 128: ddp and
+    remat-offload, PAR_STEPS steps each, through the multi-device
+    BuiltJob as rank 0 of a world-size-1 NCCL group and through the
+    no-group BuiltJob from the same seed and batches; losses, grad norms
+    and every parameter bit-equal.  Times the group's set-up: init
+    (with ``device_id`` bound NCCL builds its communicator there) and
+    the first collective."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.library import ParallelismLibrary
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models.params import tree_leaves_with_paths
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallelism.build import BuiltJob
+    from repro_torch.parallelism.dist import (file_store, init_group,
+                                              nccl_version)
+    cfg = get_config("xlstm-125m")
+    lib = ParallelismLibrary()
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=100, warmup_steps=5)
+    batches = list(SyntheticLM(cfg, seed=0).batches(
+        SATURN_B, SATURN_S, num_batches=PAR_STEPS, device="cuda"))
+    d = saturn_dir("par_group1")
+    t0 = time.perf_counter()
+    group = init_group(0, 1, file_store(str(d)), torch.device("cuda", 0))
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dist.all_reduce(torch.zeros(1, device="cuda"))
+    torch.cuda.synchronize()
+    first_collective_s = time.perf_counter() - t0
+    out = {}
+    try:
+        for tech in ("ddp", "remat-offload"):
+            plan = lib.get(tech).plan(cfg, 1)
+            runs = {}
+            for name, grp in (("no_group", None), ("group", group)):
+                job = BuiltJob(cfg, plan, opt_cfg, device="cuda", group=grp)
+                params, opt = job.init(0)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                params, opt, secs, losses, norms = timed_steps(
+                    job.step, params, opt, map(job.place_batch, batches))
+                runs[name] = {"params": params, "step_s": secs,
+                              "loss": losses, "grad_norm": norms,
+                              "peak_mem_gb":
+                              torch.cuda.max_memory_allocated() / 1e9}
+            a, b = runs["no_group"], runs["group"]
+            unequal = [
+                "/".join(p) for (p, x), (_, y) in zip(
+                    tree_leaves_with_paths(a.pop("params")),
+                    tree_leaves_with_paths(b.pop("params")))
+                if not torch.equal(x, y)]
+            if a["loss"] != b["loss"] or a["grad_norm"] != b["grad_norm"] \
+                    or unequal:
+                raise AssertionError(
+                    f"par_group1: {tech} in a group of one is not the "
+                    f"no-group step: {a['loss']} {b['loss']} "
+                    f"{a['grad_norm']} {b['grad_norm']} {unequal[:5]}")
+            out[tech] = {"no_group": a, "group": b,
+                         "bit_equal_params_losses": True}
+            torch.cuda.empty_cache()
+    finally:
+        group.destroy()
+        saturn_cleanup(d)
+    return {"config": cfg.name, "dtype": "float32", "batch": SATURN_B,
+            "seq": SATURN_S, "steps": PAR_STEPS, "backend": "nccl",
+            "world_size": 1, "nccl_version": nccl_version(),
+            "init_process_group_s": init_s,
+            "first_collective_s": first_collective_s, "techniques": out}
+
+
+def par_phases(smi):
+    """The process-group phase; the four kernel counters stay at 0."""
+    for f in kernel_wrappers().values():
+        f.launches = 0
+    emit("par_group1", nvidia_smi=smi, **par_group1(),
+         kernel_launches=check_no_launches("par_group1"))
+
+
 # ------------------------------------------------------- Saturn's loop
 
 def saturn_dir(name):
@@ -2273,6 +2372,9 @@ def main():
 
     # ------------------------------------------------------- training
     train_phases()
+
+    # ------------------------------------------------- process groups
+    par_phases(smi)
 
     # ------------------------------------------------- Saturn's loop
     saturn_phases(smi)

@@ -22,6 +22,12 @@ Commit protocol (single atomic commit point):
 - A ``.meta.json`` sidecar is still written (atomically, after the
   commit) as a human-inspectable convenience; the bundled metadata is
   authoritative.
+
+A sharded job (``parallelism.build.BuiltJob`` in a process group)
+writes the same file: rank 0 writes the full tree that
+``BuiltJob.full_state`` gathers, and on load each rank cuts its own part
+out of the full arrays (``cut``).  So a checkpoint loads under any
+(technique, device count), and in the JAX package.
 """
 from __future__ import annotations
 
@@ -134,10 +140,11 @@ def verify_checkpoint(path: str) -> dict:
     return meta or {}
 
 
-def load_checkpoint(path: str, like: Any):
+def load_checkpoint(path: str, like: Any, cut=None):
     """Restore into the structure of ``like`` (a tree of tensors), each
     leaf in its template's dtype and on its device, verifying the content
-    checksum when present."""
+    checksum when present.  ``cut(path, array)`` maps a full array to the
+    part ``like`` holds (a rank of a sharded job)."""
     arrays, _ = _read_bundle(path)
 
     def leaf(p, t):
@@ -147,6 +154,11 @@ def load_checkpoint(path: str, like: Any):
         except KeyError:
             raise CheckpointCorruptError(
                 f"checkpoint {path} is missing array {key!r}") from None
+        if cut is not None:
+            arr = cut(p, arr)
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"checkpoint {path}: {key} is {arr.shape}, "
+                             f"the job holds {tuple(t.shape)}")
         return torch.from_numpy(np.array(arr)).to(device=t.device,
                                                    dtype=t.dtype)
 
@@ -171,10 +183,10 @@ def load_metadata(path: str) -> Optional[dict]:
     return None
 
 
-def load_training_state(path: str, params: Any, opt: Any):
+def load_training_state(path: str, params: Any, opt: Any, cut=None):
     """Resume helper: restore ``(params, opt, start_step)`` from
     ``path`` if a checkpoint exists there, else return the inputs
-    unchanged at step 0.
+    unchanged at step 0 (``cut`` as in :func:`load_checkpoint`).
 
     Validates before trusting: a checkpoint that is unreadable or fails
     its content checksum is skipped with a recorded warning and the
@@ -188,7 +200,7 @@ def load_training_state(path: str, params: Any, opt: Any):
             continue
         try:
             meta = verify_checkpoint(p)
-            state = load_checkpoint(p, like)
+            state = load_checkpoint(p, like, cut)
         except CheckpointCorruptError as e:
             warnings.warn(
                 f"skipping corrupt checkpoint: {e}; "

@@ -43,8 +43,10 @@ Layering (each layer only imports downward):
     api.py           SaturnSession facade
                      (run(backend="sim"|"local"|"process"))
 
-Not ported yet: the analytic and roofline profiling that read compiled
-HLO (ROADMAP A12), and jobs of more than one GPU (process groups, A11).
+A job of more than one GPU runs as a process group of one process a
+device: through ``backend="process"`` and the empirical trials, never
+in ``LocalTorchBackend``'s threads.  Not ported yet: the analytic and
+roofline profiling that read compiled HLO (ROADMAP A12).
 """
 from .api import SaturnSession                              # noqa: F401
 from .chaos import (CapacityChange, ChaosTrace,             # noqa: F401

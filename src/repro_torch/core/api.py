@@ -183,7 +183,9 @@ class SaturnSession:
         supervised worker process
         (:class:`~repro_torch.core.process_backend.ProcessTorchBackend`:
         heartbeats, crash detection, checkpoint salvage, retry and
-        quarantine; each worker with an interpreter of its own).
+        quarantine; each worker with an interpreter of its own), and runs
+        a job of g > 1 GPUs as a process group of g workers.  ``"local"``
+        runs one GPU a job: its solver is offered the one-GPU choices.
         ``ckpt_dir`` (local/process) pins where checkpoints land.
 
         ``placement`` overrides ``cluster.placement`` for this run.
@@ -252,6 +254,12 @@ class SaturnSession:
                                                ckpt_dir=ckpt_dir,
                                                devices=self._devices())
         profiles, fleets = self.profiles, None
+        if backend == "local":
+            # LocalTorchBackend runs a job on one device (its worker
+            # threads cannot hold a process group), so its solver is
+            # offered the one-device choices
+            profiles = {k: p for k, p in profiles.items()
+                        if p.n_devices == 1}
         if self.serves:
             from ..serving.fleet import FleetManager, serve_profiles
             from .perfmodel import MergedProfiles

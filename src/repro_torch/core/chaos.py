@@ -120,10 +120,14 @@ class WorkerFault(ClusterEvent):
     makes "killed after at least one durable checkpoint" a property of
     the trace instead of a race.  A victim that finishes before reaching
     ``min_step`` is never struck.
+
+    ``rank`` picks the process a fault strikes when the victim runs as a
+    process group of several ranks (one a device); rank 0 by default.
     """
     kind: str = "sigkill"            # sigkill | hang | corrupt
     job: Optional[str] = None
     min_step: int = 0
+    rank: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,6 +21,10 @@ CPU once per device the cluster should have
 (``devices=["cpu", "cpu"]``), so that concurrent jobs train on
 "disjoint" slices as they would on cards.
 
+Each job runs on one device: a multi-device placement fails in its
+worker (a process group needs one process a rank; see
+:class:`~repro_torch.core.process_backend.ProcessTorchBackend`).
+
 Eager PyTorch holds the GIL between the operations of a step, where a
 compiled JAX step releases it for the whole step, so worker threads and
 the engine thread (its sleeps, the solver of a replan) share one
@@ -214,11 +218,18 @@ class LocalTorchBackend(ExecutionBackend):
         """Build (or reuse) the executable for one (job, technique,
         device-slice) choice.  A job relaunched onto the SAME choice
         reuses its step; a changed assignment — the usual reason for a
-        restart — builds a new one.  A plan the port does not run yet
-        (more than one device, or tp / gpipe / fsdp) raises
-        ``NotImplementedError`` here, in the worker: the engine records
-        a worker failure and retries or quarantines the job."""
+        restart — builds a new one.  A placement of more than one device
+        raises here, in the worker: a multi-device job runs one process
+        a rank, which threads cannot give it (``backend="process"`` can).
+        The engine records a worker failure and retries or quarantines
+        the job."""
         from ..parallelism.build import BuiltJob
+        if len(devices) > 1:
+            raise NotImplementedError(
+                f"{technique.name} x{len(devices)}: a multi-device job "
+                "runs as a process group of one process a device, which "
+                "LocalTorchBackend's worker threads cannot hold; use "
+                "backend=\"process\" (ProcessTorchBackend)")
         key = (job.name, technique.name, tuple(str(d) for d in devices))
         with self._lock:
             built = self._built_cache.get(key)

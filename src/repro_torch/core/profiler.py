@@ -8,6 +8,9 @@ Two interchangeable backends share one cache and result type:
   steps, with the device synchronized before each clock read).  It needs
   the device count to be available locally: the runner's device list
   (every card for ``device="cuda"``; ``devices=`` names them outright).
+  A trial on g > 1 devices runs the same trial in a spawned process
+  group of g ranks (``parallelism.dist.spawn``): the slowest rank's
+  step and the largest peak memory over the ranks.
 - **napkin** — a closed-form roofline (no step is run), the cheap
   deterministic backend for benchmarks and the performance-model
   layer's synthetic sweeps.
@@ -47,6 +50,7 @@ from ..models.params import param_count
 from ..models.transformer import model_spec
 from ..parallelism.base import Plan
 from ..parallelism.build import BuiltJob
+from ..parallelism.dist import spawn
 from .job import DEFAULT_CLASS, Job
 from .library import ParallelismLibrary
 
@@ -130,7 +134,58 @@ class Profile:
 # cheaper than guessing one
 CACHE_VERSION = 4
 PROFILE_MODES = ("analytic", "empirical", "napkin")
+# a g > 1 empirical trial: spawn, group set-up and three steps
+GROUP_TRIAL_TIMEOUT_S = 600.0
 PROFILE_STRATEGIES = ("exhaustive", "interpolate", "roofline")
+
+
+def timed_trial(built: BuiltJob, batch_size: int, seq_len: int):
+    """One warm-up and two timed minibatches of ``built``'s step, per
+    the paper: (mean seconds a step, peak bytes allocated on a card, or
+    None on the CPU).  The trial's state is freed before it returns."""
+    from ..configs import concrete_batch
+    dev = built.device
+    on_cuda = dev.type == "cuda"
+
+    def sync():
+        if on_cuda:
+            torch.cuda.synchronize(dev)
+
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = opt = batch = None
+    try:
+        params, opt = built.init(0)
+        batch = built.place_batch(concrete_batch(
+            built.cfg, batch_size, seq_len, device=dev))
+        params, opt, _ = built.step(params, opt, batch)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            params, opt, _ = built.step(params, opt, batch)
+        sync()
+        dt = (time.perf_counter() - t0) / 2
+        peak = float(torch.cuda.max_memory_allocated(dev)) if on_cuda \
+            else None
+    finally:
+        # parameters, optimizer moments and the batch would otherwise
+        # pile up across trials
+        del params, opt, batch
+        if on_cuda:
+            torch.cuda.empty_cache()
+    return dt, peak
+
+
+def _group_trial(group, cfg, plan: Plan, opt_cfg, batch_size: int,
+                 seq_len: int):
+    """:func:`timed_trial` as one rank of a g > 1 trial: the largest
+    step time and peak over the ranks."""
+    import torch.distributed as dist
+    built = BuiltJob(cfg, plan, opt_cfg, group=group)
+    dt, peak = timed_trial(built, batch_size, seq_len)
+    got = torch.tensor([dt, peak or 0.0], device=built.device)
+    dist.all_reduce(got, op=dist.ReduceOp.MAX)
+    return float(got[0]), float(got[1]) if peak is not None else None
 
 
 def _hlo_only(what: str) -> NotImplementedError:
@@ -453,58 +508,37 @@ class TrialRunner:
     # --------------------------------------------------------- empirical
     def _profile_empirical(self, job: Job, technique: str, n_devices: int,
                            hw: HardwareSpec, device_class: str) -> Profile:
-        from ..configs import concrete_batch
         devices = self._local_devices()
         if n_devices > len(devices):
             raise RuntimeError(
                 f"empirical profiling needs {n_devices} local devices")
-        tech = self.library.get(technique)
-        on_cuda = devices[0].type == "cuda"
-        params = opt = batch = None
         try:
-            plan = tech.plan(job.cfg, n_devices)
-            built = self._built_job(job, plan, devices[:n_devices])
-            dev = built.device
-
-            def sync():
-                if on_cuda:
-                    torch.cuda.synchronize(dev)
-
-            if on_cuda:
-                torch.cuda.reset_peak_memory_stats(dev)
-            params, opt = built.init(0)
-            batch = built.place_batch(concrete_batch(
-                job.cfg, job.batch_size, job.seq_len, device=dev))
-            # 1 warmup + 2 timed minibatches, per the paper
-            params, opt, _ = built.step(params, opt, batch)
-            sync()
-            t0 = time.perf_counter()
-            for _ in range(2):
-                params, opt, _ = built.step(params, opt, batch)
-            sync()
-            dt = (time.perf_counter() - t0) / 2
-            terms = ({"peak_mem_bytes":
-                      float(torch.cuda.max_memory_allocated(dev))}
-                     if on_cuda else {})
+            plan = self.library.get(technique).plan(job.cfg, n_devices)
+            if n_devices > 1:
+                # one spawned rank a device; the slowest rank's step and
+                # the largest peak over the ranks
+                dt, peak = spawn(
+                    _group_trial, devices[:n_devices], job.cfg, plan,
+                    job.opt_cfg, job.batch_size, job.seq_len,
+                    timeout_s=GROUP_TRIAL_TIMEOUT_S)
+            else:
+                dt, peak = timed_trial(
+                    self._built_job(job, plan, devices[:1]),
+                    job.batch_size, job.seq_len)
         except (AssertionError, ValueError, TypeError, ZeroDivisionError,
-                RuntimeError) as e:
+                RuntimeError, TimeoutError) as e:
             # a trial that cannot even build/run its step for THIS
-            # job's concrete shape (a technique or count the port does
-            # not run yet raises NotImplementedError, a RuntimeError) is
-            # an infeasible choice, not a crashed sweep — exactly what a
-            # real cluster trial would conclude
+            # job's concrete shape is an infeasible choice, not a
+            # crashed sweep — exactly what a real cluster trial would
+            # conclude (a group's RuntimeError carries the failing
+            # rank's traceback)
             print(f"trial {job.name}/{technique}x{n_devices} failed "
                   f"({e!r}); recording infeasible")
             return Profile(job.name, technique, n_devices, float("inf"),
                            float("inf"), False, "empirical",
                            {"trial_error": 1.0},
                            device_class=device_class)
-        finally:
-            # free the trial's state before the next trial: parameters,
-            # optimizer moments and the batch would otherwise pile up
-            del params, opt, batch
-            if on_cuda:
-                torch.cuda.empty_cache()
+        terms = {"peak_mem_bytes": peak} if peak is not None else {}
         mem = self._mem_estimate(job, plan)
         return Profile(job.name, technique, n_devices, dt, mem,
                        mem <= hw.hbm_capacity, "empirical", terms,

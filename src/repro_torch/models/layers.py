@@ -4,6 +4,12 @@ train / prefill / decode-with-KV-cache) and the dense FFN.
 Params are dicts of tensors from ``params.init_params``, in the JAX
 package's layouts: attention is (B, S, H, D) and projections are
 (d, heads, head_dim).
+
+Under tensor parallelism (``parallelism.context.current_tp``) each rank
+holds its heads (and kv heads where they divide) of the attention
+projections and its ffn columns of the FFN: the block's input enters
+through ``copy_in`` and its output leaves through one all-reduce
+(``reduce_out``), Megatron's column and row splits.
 """
 from __future__ import annotations
 
@@ -12,6 +18,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallelism import collectives as C
+from ..parallelism.context import current_tp
 from .config import ModelConfig
 from .params import P
 
@@ -103,9 +111,14 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0,
         else:
             positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
 
+    wk, wv = p["wk"], p["wv"]
+    tp = current_tp() if cache is None else None
+    if tp is not None:
+        x = C.copy_in(x, tp)
+        wk, wv = _tp_kv(p, cfg, tp)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = torch.einsum("bsd,dhk->bshk", x, wk)
+    v = torch.einsum("bsd,dhk->bshk", x, wv)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     scale = hd ** -0.5
@@ -127,6 +140,8 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0,
             probs = torch.softmax(scores, dim=-1).to(x.dtype)
             out = _gqa_out(probs, v)
         y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        if tp is not None:
+            y = C.reduce_out(y, tp)
         if return_cache:
             return y, {"k": k, "v": v}
         return y, None
@@ -162,6 +177,22 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0,
     return y, {"k": ck, "v": cv}
 
 
+def _tp_kv(p, cfg: ModelConfig, tp):
+    """The kv projections a rank's q heads attend with.  Kv heads that
+    divide over the ranks are sharded like the q heads, and the local
+    ones line up with them.  Kv heads that do not are replicated: each
+    local q head takes its own kv head's columns (a local layout of one
+    kv head per q head), and the weights enter through ``copy_in``,
+    since every rank adds only its q heads' part to their gradient."""
+    if cfg.num_kv_heads % tp.size == 0:
+        return p["wk"], p["wv"]
+    heads = p["wq"].shape[1]
+    kv_of = torch.arange(tp.rank * heads, (tp.rank + 1) * heads,
+                         device=p["wk"].device) // cfg.q_per_kv
+    return (C.copy_in(p["wk"], tp)[:, kv_of],
+            C.copy_in(p["wv"], tp)[:, kv_of])
+
+
 def attn_cache_spec(cfg: ModelConfig, batch: int, length: int, dtype):
     """Meta tensors (shape and dtype, no storage) for one layer's cache."""
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
@@ -183,6 +214,10 @@ def ffn_spec(cfg: ModelConfig):
 
 
 def ffn(p, x):
+    tp = current_tp()
+    if tp is not None:
+        x = C.copy_in(x, tp)
     g = F.silu(torch.einsum("bsd,df->bsf", x, p["wi_gate"]))
     u = torch.einsum("bsd,df->bsf", x, p["wi_up"])
-    return torch.einsum("bsf,fd->bsd", g * u, p["wo"])
+    y = torch.einsum("bsf,fd->bsd", g * u, p["wo"])
+    return y if tp is None else C.reduce_out(y, tp)

@@ -15,6 +15,11 @@ most ties come from.
 The combine adds each token's kept contributions in a fixed order
 (expert id ascending, the order in which the JAX package's scatter-add
 visits them) with no atomics, so a CUDA run is bit-for-bit repeatable.
+
+Under tensor parallelism the experts are sharded (expert parallelism):
+every rank routes the whole batch, the ``shard`` sites cut the
+dispatched slabs and their gate weights to the rank's experts, each
+rank combines its experts' share, and one all-reduce sums the shares.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..parallelism import collectives as C
+from ..parallelism.context import current_tp, shard
 from .config import ModelConfig
 from .layers import rmsnorm_spec
 from .params import P
@@ -101,16 +108,21 @@ def route(p, x, cfg: ModelConfig, cap: int) -> Routes:
                   aux)
 
 
-def combine(y, routes: Routes):
+def combine(y, routes: Routes, first_expert: int = 0):
     """out[b, t] = the sum of y's slots that token t was routed to, added
-    in y's dtype in expert order from zero; y: (B, E, C, d) weighted."""
+    in y's dtype in expert order from zero; y: (B, E, C, d) weighted,
+    the slabs of experts ``first_expert`` to ``first_expert + E - 1``
+    (a rank's share under expert parallelism)."""
     b, e, cap, d = y.shape
     s, k = routes.slot_of_pair.shape[1:]
     by_expert = torch.argsort(routes.top_idx, dim=-1)
-    slots = routes.slot_of_pair.gather(-1, by_expert)        # (B, S, k)
+    slots = routes.slot_of_pair.gather(-1, by_expert) \
+        - first_expert * cap                                 # (B, S, k)
+    kept = (slots >= 0) & (slots < e * cap)
     picked = y.reshape(b, e * cap, d).gather(
-        1, slots.clamp_min(0).reshape(b, s * k, 1).expand(-1, -1, d))
-    picked = torch.where((slots >= 0).reshape(b, s * k, 1), picked,
+        1, slots.clamp(0, e * cap - 1).reshape(b, s * k, 1)
+        .expand(-1, -1, d))
+    picked = torch.where(kept.reshape(b, s * k, 1), picked,
                          0).reshape(b, s, k, d)
     out = torch.zeros((b, s, d), dtype=y.dtype, device=y.device)
     for j in range(k):
@@ -126,8 +138,15 @@ def moe_ffn(p, x, cfg: ModelConfig):
     d = x.shape[-1]
     xg = x.gather(1, routes.tok_of_slot.reshape(b, e * cap, 1)
                   .expand(-1, -1, d)).reshape(b, e, cap, d)
+    xg = shard(xg, "batch", "experts", None, None)
     g = F.silu(torch.einsum("becd,edf->becf", xg, p["wi_gate"]))
     u = torch.einsum("becd,edf->becf", xg, p["wi_up"])
     y = torch.einsum("becf,efd->becd", g * u, p["wo"])       # (B, E, C, d)
-    y = y * routes.w_of_slot[..., None].to(y.dtype)
-    return combine(y, routes), routes.aux.mean()
+    y = shard(y, "batch", "experts", None, None)
+    w = shard(routes.w_of_slot, "batch", "experts", None)
+    y = y * w[..., None].to(y.dtype)
+    tp = current_tp()
+    if tp is None:
+        return combine(y, routes), routes.aux.mean()
+    out = combine(y, routes, first_expert=tp.rank * y.shape[1])
+    return C.reduce_out(out, tp), routes.aux.mean()

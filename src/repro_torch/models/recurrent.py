@@ -7,6 +7,15 @@ prefill) and a single-token decode apply carrying a small recurrent
 state; ``<block>_state_spec`` gives that state as meta tensors.  The
 layouts are the JAX package's: activations (B, S, ...), heads before
 head_dim, recurrent matrices R[h, out, in].
+
+Under tensor parallelism (``parallelism.context.current_tp``) each rank
+holds the part of every weight that the plan's rules give it, and the
+full-sequence applies run on those parts: the RG-LRU on its rnn
+channels, the mLSTM on its up-projection channels and heads, the sLSTM
+on its heads (the recurrences split by channel or by head).  The block's
+input enters through ``copy_in``; products over a split input dim are
+summed by a reduce-scatter onto the rank's channels or heads, and the
+block's output by one all-reduce.
 """
 from __future__ import annotations
 
@@ -15,6 +24,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallelism import collectives as C
+from ..parallelism.context import current_tp
 from .blockwise import mlstm_chunked
 from .config import ModelConfig
 from .layers import rmsnorm_spec
@@ -74,10 +85,16 @@ def rglru_block_spec(cfg: ModelConfig):
     }
 
 
-def _rglru_coeffs(p, u):
-    """u: (..., r) post-conv branch.  Returns (a, b) of h = a*h_prev + b."""
-    r_gate = torch.sigmoid(u @ p["w_rec_gate"])
-    i_gate = torch.sigmoid(u @ p["w_in_gate"])
+def _rglru_coeffs(p, u, tp=None):
+    """u: (..., r) post-conv branch.  Returns (a, b) of h = a*h_prev + b.
+    Under ``tp`` u holds the rank's channels and the gates' rows are
+    split with them: each gate is the rank's slice of the summed parts."""
+    if tp is None:
+        gate = lambda w: u @ w
+    else:
+        gate = lambda w: C.reduce_split(u @ w, -1, tp)
+    r_gate = torch.sigmoid(gate(p["w_rec_gate"]))
+    i_gate = torch.sigmoid(gate(p["w_in_gate"]))
     log_a = -_RGLRU_C * r_gate * F.softplus(p["lam"])  # log sigmoid(lam)^(c*r)
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) \
@@ -108,12 +125,17 @@ def rglru_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     ``rglru_scan_ref``; with ``return_state`` the decode state is h's
     last step (float32) and the conv tail.  state=dict: one decode step,
     x is (B, 1, d), h carried in float32."""
+    tp = current_tp() if state is None and not return_state else None
+    if tp is not None:
+        x = C.copy_in(x, tp)
     gelu_branch = F.gelu(x @ p["w_gelu"], approximate="tanh")
     u = x @ p["w_branch"]
     if state is None:
-        a, b = _rglru_coeffs(p, conv1d(p["conv"], u))
+        a, b = _rglru_coeffs(p, conv1d(p["conv"], u), tp)
         h = (scan_fn or rglru_scan_ref)(a, b)
         y = (h * gelu_branch) @ p["w_out"]
+        if tp is not None:
+            return C.reduce_out(y, tp), None
         if return_state:
             return y, {"h": h[:, -1].float(), "conv": _conv_tail(p, u)}
         return y, None
@@ -195,6 +217,9 @@ def mlstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     nh = cfg.num_heads
     up = p["w_up"].shape[1]
     dh = up // nh
+    tp = current_tp() if state is None and not return_state else None
+    if tp is not None:
+        return _mlstm_block_tp(p, x, parallel_fn, tp)
     xin = x @ p["w_up"]
     z = x @ p["w_gate"]
     if state is None:
@@ -238,6 +263,31 @@ def mlstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     h = (num / den[..., None]).reshape(b, up).to(x.dtype)
     out = (h * F.silu(z[:, 0])) @ p["w_down"]
     return out[:, None], {"C": C, "n": n, "m": m_new, "conv": conv_state}
+
+
+def _mlstm_block_tp(p, x, parallel_fn, tp):
+    """The full-sequence mLSTM on a rank's part: its up-projection
+    channels (w_up, w_gate, conv and the rows of wq/wk/wv/wi/wf, w_down)
+    and, after the reduce-scatter of q, k, v and the gate
+    pre-activations, its heads.  A head's channels are the rank's
+    channels, so its h meets its own z."""
+    b, s, _ = x.shape
+    x = C.copy_in(x, tp)
+    xin = x @ p["w_up"]
+    z = x @ p["w_gate"]
+    c = F.silu(conv1d(p["conv"], xin))
+    heads = lambda t: C.reduce_split(t, 2, tp)
+    q = heads(torch.einsum("bsu,uhd->bshd", c, p["wq"]))
+    k = heads(torch.einsum("bsu,uhd->bshd", c, p["wk"]))
+    v = heads(torch.einsum("bsu,uhd->bshd", xin, p["wv"]))
+    i_pre = heads(torch.einsum("bsu,uh->bsh", c, p["wi"])) + p["bi"]
+    f_pre = heads(torch.einsum("bsu,uh->bsh", c, p["wf"])) + p["bf"]
+    if parallel_fn is None:
+        parallel_fn = (mlstm_chunked if s > _MLSTM_QUADRATIC_MAX_S
+                       else mlstm_parallel_ref)
+    h = parallel_fn(q, k, v, i_pre, f_pre)
+    out = h.reshape(b, s, -1) * F.silu(z)
+    return C.reduce_out(out @ p["w_down"], tp), None
 
 
 def mlstm_state_spec(cfg: ModelConfig, batch: int, dtype):
@@ -295,8 +345,10 @@ def slstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     dtype, as the JAX package's does.  state=dict: one decode step, x is
     (B, 1, d)."""
     b, s, d = x.shape
-    nh = cfg.num_heads
-    dh = d // nh
+    tp = current_tp() if state is None and not return_state else None
+    if tp is not None:
+        x = C.copy_in(x, tp)
+    nh, dh = p["wz"].shape[1:]      # a rank's heads under ``tp``
     gates = torch.stack([
         torch.einsum("bsd,dhe->bshe", x, p["wz"]),
         torch.einsum("bsd,dhe->bshe", x, p["wi"]) + p["bi"],
@@ -306,7 +358,7 @@ def slstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     if state is None:
         if slstm_fn is not None and not return_state:
             h = slstm_fn(gates, p["rz"], p["ri"], p["rf"], p["ro"])
-            return h.reshape(b, s, d) @ p["w_out"], None
+            return _slstm_out(p, h.reshape(b, s, nh, dh), tp), None
         dev = x.device
         carry = (torch.zeros((b, nh, dh), device=dev),
                  torch.zeros((b, nh, dh), device=dev),
@@ -314,21 +366,31 @@ def slstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
                  torch.zeros((b, nh, dh), dtype=x.dtype, device=dev))
         if batched_grad:
             carry, hs = slstm_scan(p, gates.transpose(0, 1), carry)
-            h = hs.transpose(0, 1).reshape(b, s, d)
+            h = hs.transpose(0, 1)
         else:
             hs = []
             for t in range(s):
                 carry = _slstm_step(p, carry, gates[:, t])
                 hs.append(carry[3])
-            h = torch.stack(hs, dim=1).reshape(b, s, d)
+            h = torch.stack(hs, dim=1)
         if return_state:
             c, n, m, h_last = carry
-            return h @ p["w_out"], {"c": c, "n": n, "m": m, "h": h_last}
-        return h @ p["w_out"], None
+            return h.reshape(b, s, d) @ p["w_out"], \
+                {"c": c, "n": n, "m": m, "h": h_last}
+        return _slstm_out(p, h, tp), None
     carry = (state["c"], state["n"], state["m"], state["h"])
     new = _slstm_step(p, carry, gates[:, 0])
     y = (new[3].reshape(b, d) @ p["w_out"])[:, None]
     return y, {"c": new[0], "n": new[1], "m": new[2], "h": new[3]}
+
+
+def _slstm_out(p, h, tp):
+    """h (B, S, heads, D) -> the block's output through w_out; under
+    ``tp`` the ranks' heads are gathered first (w_out is replicated)."""
+    if tp is not None:
+        h = C.gather(h, 2, tp)
+    b, s = h.shape[:2]
+    return h.reshape(b, s, -1) @ p["w_out"]
 
 
 def slstm_state_spec(cfg: ModelConfig, batch: int, dtype):

@@ -12,6 +12,16 @@ keep the JAX package's layout.  Supports the full-sequence forward,
 serving prefill (last-position logits plus a decode-ready state: KV
 caches or recurrent states) and single-token decode against that state.
 
+The ``shard`` calls mark the JAX package's annotation sites (the
+residual stream after each scanned repeat, the embedding, the logits);
+outside a rules context they return their input.  Under tensor
+parallelism the embedding and unembedding are split over the vocab:
+each rank looks up and scores its vocab rows, and the loss is taken
+over the ranks' logit shards (``train.steps``).  The model takes the
+parameters of each unit through ``use`` (the embedding, the final norm,
+the unembedding, a block of a layer group), where an fsdp step makes
+them whole just in time.
+
 ``opts=None`` means ``kernel_opts(<device of the params>)``: on CUDA the
 full-sequence attention, RG-LRU scan, mLSTM and sLSTM run the
 hand-written kernels.
@@ -27,6 +37,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels.ops import kernel_opts
+from ..parallelism import collectives as C
+from ..parallelism.context import bound_use, current_tp, shard, use
 from .config import ATTN, MLSTM, RECURRENT, RGLRU, SLSTM, SWA, ModelConfig
 from .layers import (attention, attention_spec, attn_cache_spec, ffn,
                      ffn_spec, rmsnorm, rmsnorm_spec)
@@ -193,6 +205,7 @@ def _run_groups(params, cfg: ModelConfig, x, *, caches=None, positions=None,
     each block in an unrolled one."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_groups = []
+    take = bound_use()
     for gi, (mode, pattern, n) in enumerate(cfg.layer_plan()):
         gparams = params["groups"][gi]
         gcaches = caches[gi] if caches is not None else None
@@ -202,14 +215,18 @@ def _run_groups(params, cfg: ModelConfig, x, *, caches=None, positions=None,
         collected = {key: [] for key, _ in keyed}
         for r in range(reps):
             at = (lambda t: t) if mode == "unroll" else (lambda t, r=r: t[r])
+            rep = None if mode == "unroll" else r
             for unit in units:
-                def run(x_, unit=unit, at=at):
+                # bound now: a remat recompute calls run after the loop
+                # has moved on to a later group
+                def run(x_, unit=unit, at=at, rep=rep, gparams=gparams,
+                        gcaches=gcaches, take=take):
                     ncs, aux_ = {}, 0.0
                     for key, kind in unit:
                         c = (tree_map(at, gcaches[key])
                              if gcaches is not None else None)
                         x_, ncs[key], a = _block_apply(
-                            tree_map(at, gparams[key]), x_, kind=kind,
+                            take(gparams[key], rep), x_, kind=kind,
                             cfg=cfg, cache=c, positions=positions, pos=pos,
                             opts=opts, prefill=prefill)
                         aux_ = aux_ + a
@@ -218,6 +235,8 @@ def _run_groups(params, cfg: ModelConfig, x, *, caches=None, positions=None,
                     x, ncs, a = checkpoint(run, x, use_reentrant=False)
                 else:
                     x, ncs, a = run(x)
+                if mode == "scan":
+                    x = shard(x, "batch", "seq", None)
                 aux_total = aux_total + a
                 for key, kind in unit:
                     if prefill or (gcaches is not None and kind in RECURRENT):
@@ -251,16 +270,36 @@ def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, Any]):
     if batch.get("embeds") is not None:
         parts.append(batch["embeds"].to(params["embed"].dtype))
     if batch.get("tokens") is not None:
-        parts.append(params["embed"][batch["tokens"].long()])
+        parts.append(_embed_tokens(use(params["embed"]), batch["tokens"]))
     if not parts:
         raise ValueError("batch must contain tokens and/or embeds")
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return shard(x, "batch", "seq", None)
+
+
+def _embed_tokens(table, tokens):
+    """Rows of ``table`` for ``tokens``; under tensor parallelism the
+    rank holds a slice of the vocab, looks up the tokens that fall in
+    it, and the ranks' rows are summed."""
+    tp = current_tp()
+    if tp is None:
+        return table[tokens.long()]
+    n = table.shape[0]
+    local = tokens.long() - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)] * inside[..., None].to(table.dtype)
+    return C.reduce_out(rows, tp)
 
 
 def unembed(params, cfg: ModelConfig, x):
+    tp = current_tp()
+    if tp is not None:
+        x = C.copy_in(x, tp)
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"])
-    return torch.einsum("bsd,dv->bsv", x, params["unembed"])
+        logits = torch.einsum("bsd,vd->bsv", x, use(params["embed"]))
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, use(params["unembed"]))
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *,
@@ -269,7 +308,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     opts = _resolve_opts(params, opts)
     x = embed_inputs(params, cfg, batch)
     x, _, aux = _run_groups(params, cfg, x, opts=opts, remat=remat)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = rmsnorm(use(params["final_norm"]), x, cfg.norm_eps)
     return unembed(params, cfg, x), aux
 
 

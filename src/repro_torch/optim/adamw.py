@@ -69,10 +69,13 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state):
-    """Returns (new_params, new_state, metrics)."""
+def adamw_update(cfg: AdamWConfig, params, grads, state, gnorm=None):
+    """Returns (new_params, new_state, metrics).  ``gnorm`` is the
+    global gradient norm where the caller knows it (a sharded job holds
+    only its part of the gradient); by default that of ``grads``."""
     step = state["step"]
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = None
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),

@@ -2,7 +2,8 @@
 Library (paper §3 registers FSDP, DDP, GPipe, offloading; we add TP and
 implement offloading as full-remat).  A copy of the JAX package's
 module, so that ``search_space`` and ``plan`` agree with it; the port's
-``BuiltJob`` executes ``ddp`` and ``remat-offload`` at one device.
+``BuiltJob`` executes every plan: at one device without a process
+group, at n devices as one rank of an n-rank group.
 """
 from __future__ import annotations
 

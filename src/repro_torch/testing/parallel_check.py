@@ -1,0 +1,255 @@
+"""Parallelism-equivalence checker, the JAX package's
+``repro.testing.parallel_check`` on process groups.
+
+    PYTHONPATH=src python -m repro_torch.testing.parallel_check ARCH \\
+        --ranks N [--device cpu|cuda]
+
+spawns N ranks (gloo on the CPU, NCCL on CUDA, where rank r takes card
+r; NCCL refuses two ranks on one card) and, for every technique in the
+search space of ``ARCH``'s reduced config at N devices, runs one train step on the N ranks and holds it against the
+port's one-device step from the same parameters and batch: the loss
+and every parameter within ``--tol`` (2e-2), the reference's contract.
+Prints one line per technique, with a rank's resident bytes and its
+peak bytes in the step and in the checkpoint's gather
+(:func:`peak_bytes`) over P, the one-device parameter bytes, and exits
+non-zero on any ``FAIL``.
+
+:func:`technique_steps` is the per-rank work of the check, and
+:func:`segments` trains checkpointed segments under changing
+techniques; the port's tests run both through
+:func:`~repro_torch.parallelism.dist.spawn`.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+DEFAULT_TOL = 2e-2
+
+
+def peak_bytes(fn, device):
+    """(fn(), the most bytes that fn held allocated on ``device`` at once
+    beyond what was allocated before it): CUDA's allocator statistics on
+    a card, the profiler's allocation events on the CPU.
+
+    The profiler sees the frees of its own thread only, and gloo's
+    worker threads sometimes drop the last reference to a tensor that a
+    collective was given.  A block whose free went unseen is counted as
+    freed when the allocator hands its address out again; one whose
+    address is never reused stays counted, so the CPU figure may
+    overstate the peak, never understate it."""
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        before = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = fn()
+        torch.cuda.synchronize(device)
+        return out, torch.cuda.max_memory_allocated(device) - before
+    from torch._C._profiler import _EventType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU],
+                 profile_memory=True) as prof:
+        out = fn()
+
+    def walk(nodes):
+        for e in nodes:
+            yield e
+            yield from walk(e.children)
+
+    events = sorted((e for e in walk(
+        prof.profiler.kineto_results.experimental_event_tree())
+        if e.typed[0] == _EventType.Allocation),
+        key=lambda e: e.start_time_ns)
+    live = {}
+    held = peak = 0
+    for e in events:
+        ptr, size = e.typed[1].ptr, e.typed[1].alloc_size
+        held -= live.pop(ptr, 0)
+        if size > 0:
+            live[ptr] = size
+            held += size
+            peak = max(peak, held)
+    return out, peak
+
+
+def technique_steps(group, cfg, opt_cfg, params_np, batch_np, techniques,
+                    measure=False):
+    """Per rank: for each technique name, one train step of ``cfg`` at
+    ``group.size`` devices from the full parameters ``params_np``
+    (slash-joined path -> array) on the global batch ``batch_np``.
+    Returns, on rank 0, per technique: the full parameters, mu and nu
+    after the step (numpy), its metrics, and every rank's resident
+    parameter + mu + nu bytes; with ``measure``, also every rank's
+    :func:`peak_bytes` in the step and in the checkpoint's gather."""
+    import torch
+
+    from ..models.params import params_from_numpy, params_to_numpy
+    from ..optim.adamw import init_opt_state
+    from ..parallelism import collectives as C
+    from ..parallelism.build import BuiltJob, _leaves
+    from ..parallelism.techniques import DEFAULT_TECHNIQUES
+    by_name = {t.name: t for t in DEFAULT_TECHNIQUES}
+    batch = {k: torch.as_tensor(v, device=group.device)
+             for k, v in batch_np.items()}
+    results = {}
+    for name in techniques:
+        plan = by_name[name].plan(cfg, group.size)
+        job = BuiltJob(cfg, plan, opt_cfg, group=group)
+        params = job.shard(params_from_numpy(params_np, device=group.device))
+        opt = init_opt_state(params)
+        resident = sum(t.numel() * t.element_size() for t in
+                       _leaves(params) + _leaves(opt["mu"])
+                       + _leaves(opt["nu"]))
+        world = job.mesh.axis(plan.mesh_axis_names[0])
+        local = job.place_batch(batch)
+        if measure:
+            (params, opt, m), step_peak = peak_bytes(
+                lambda: job.step(params, opt, local), group.device)
+            full, commit_peak = peak_bytes(
+                lambda: job.full_state(params, opt), group.device)
+        else:
+            params, opt, m = job.step(params, opt, local)
+            full = job.full_state(params, opt)
+            step_peak = commit_peak = 0
+        per_rank = C.all_gather(torch.tensor(
+            [[float(resident), float(step_peak), float(commit_peak)]],
+            device=group.device), 0, world).cpu()
+        if group.rank == 0:
+            results[name] = {
+                "params": params_to_numpy(full["params"]),
+                "mu": params_to_numpy(full["opt"]["mu"]),
+                "nu": params_to_numpy(full["opt"]["nu"]),
+                "step": int(full["opt"]["step"]),
+                "metrics": {k: float(v) for k, v in m.items()},
+                "resident_bytes": per_rank[:, 0].tolist(),
+                "step_peak_bytes": per_rank[:, 1].tolist(),
+                "commit_peak_bytes": per_rank[:, 2].tolist()}
+    return results
+
+
+def technique_runs(group, cfg, opt_cfg, inits, batch_np, techniques,
+                   measure=()):
+    """:func:`technique_steps` from each of several initial parameter
+    trees (name -> path -> array) in one group, measuring the peaks of
+    the inits named in ``measure``; results by name."""
+    return {name: technique_steps(group, cfg, opt_cfg, params_np, batch_np,
+                                  techniques, measure=name in measure)
+            for name, params_np in inits.items()}
+
+
+def segments(group, cfg, opt_cfg, segs):
+    """Per rank: for each (technique, ckpt_in, ckpt_out, batch_np) in
+    ``segs``, build the technique at ``group.size`` devices, resume from
+    ``ckpt_in``, take one step and write ``ckpt_out`` (rank 0, the full
+    tree).  Returns each step's metrics on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from ..checkpoint.store import save_checkpoint
+    from ..parallelism.build import BuiltJob
+    from ..parallelism.techniques import DEFAULT_TECHNIQUES
+    by_name = {t.name: t for t in DEFAULT_TECHNIQUES}
+    out = []
+    for name, ckpt_in, ckpt_out, batch_np in segs:
+        job = BuiltJob(cfg, by_name[name].plan(cfg, group.size), opt_cfg,
+                       group=group)
+        params, opt = job.init(0)
+        params, opt, start = job.load(ckpt_in, params, opt)
+        batch = {k: torch.as_tensor(v, device=group.device)
+                 for k, v in batch_np.items()}
+        params, opt, m = job.step(params, opt, job.place_batch(batch))
+        tree = job.full_state(params, opt)
+        m = {k: float(v) for k, v in m.items()}
+        if tree is not None:
+            save_checkpoint(ckpt_out, tree,
+                            {"step": start + 1, "loss": m["loss"]})
+        dist.barrier()      # the next segment's ranks read ckpt_out
+        out.append(m)
+    return out
+
+
+def check(arch_id: str = "h2o-danube-3-4b", ranks: int = 2,
+          device: str = "cpu", tol: float = DEFAULT_TOL):
+    """The reference's contract on ``ranks`` ranks; returns one result a
+    technique in the search space (its loss, the loss's and the largest
+    parameter's distance from the baseline, and whether both are within
+    ``tol``)."""
+    import numpy as np
+
+    from ..configs import concrete_batch, get_config
+    from ..models.params import params_to_numpy
+    from ..optim.adamw import AdamWConfig
+    from ..parallelism.build import BuiltJob
+    from ..parallelism.dist import spawn
+    from ..parallelism.techniques import DEFAULT_TECHNIQUES, DDP
+
+    cfg = get_config(arch_id).reduced(num_layers=4)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    # the baseline on the CPU, the ranks on ``device``
+    base = BuiltJob(cfg, DDP().plan(cfg, 1), opt_cfg, device="cpu")
+    params, opt = base.init(42)
+    # copies: the step below updates ``params`` in place
+    params_np = {k: v.copy() for k, v in params_to_numpy(params).items()}
+    batch = concrete_batch(cfg, 8, 32, device="cpu")
+    p_ref, _, m_ref = base.step(params, opt, batch)
+    ref = params_to_numpy(p_ref)
+    ref_loss = float(m_ref["loss"])
+    print(f"[baseline] {arch_id} loss={ref_loss:.6f}", flush=True)
+
+    names = [t.name for t in DEFAULT_TECHNIQUES
+             if t.search_space(cfg, ranks)]
+    for t in DEFAULT_TECHNIQUES:
+        if t.name not in names:
+            print(f"[{t.name}] not in search space for {arch_id}@{ranks} "
+                  "— skipped", flush=True)
+    devices = [f"cuda:{r}" if device == "cuda" else "cpu"
+               for r in range(ranks)]
+    got = spawn(technique_steps, devices, cfg, opt_cfg, params_np,
+                {k: v.numpy() for k, v in batch.items()}, names, True)
+    p_bytes = 4.0 * sum(v.size for v in ref.values())
+    results = []
+    for name in names:
+        r = got[name]
+        loss = r["metrics"]["loss"]
+        diff = max(float(np.max(np.abs(r["params"][k] - ref[k])))
+                   for k in ref)
+        ok = abs(loss - ref_loss) < tol and diff < tol
+        # a rank's bytes over P, the one-device parameter bytes: the
+        # largest over the ranks, rank 0's commit apart
+        peaks = {"resident_P": max(r["resident_bytes"]) / p_bytes,
+                 "step_peak_P": max(r["step_peak_bytes"]) / p_bytes,
+                 "commit_peak_P_rank0": r["commit_peak_bytes"][0] / p_bytes,
+                 "commit_peak_P_others":
+                     max(r["commit_peak_bytes"][1:], default=0.0) / p_bytes}
+        print(f"[{name}] loss={loss:.6f} dloss={abs(loss - ref_loss):.2e} "
+              f"max_param_diff={diff:.2e} "
+              + " ".join(f"{k}={v:.3f}" for k, v in peaks.items())
+              + f" {'OK' if ok else 'FAIL'}", flush=True)
+        results.append({"technique": name, "loss": loss,
+                        "dloss": abs(loss - ref_loss),
+                        "max_param_diff": diff, "ok": ok, **peaks})
+    return results
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("arch", nargs="?", default="h2o-danube-3-4b")
+    ap.add_argument("--ranks", type=int, default=2)
+    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--tol", type=float, default=DEFAULT_TOL)
+    args = ap.parse_args(argv)
+    if args.device == "cuda":
+        import torch
+        if torch.cuda.device_count() < args.ranks:
+            print(f"parallel_check: {args.ranks} ranks need as many cards "
+                  f"(found {torch.cuda.device_count()})", file=sys.stderr)
+            return 2
+    results = check(args.arch, args.ranks, args.device, args.tol)
+    return int(not all(r["ok"] for r in results))
+
+
+if __name__ == "__main__":
+    os.environ.setdefault("OMP_NUM_THREADS", "1")
+    sys.exit(main())

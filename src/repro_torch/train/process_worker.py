@@ -34,13 +34,25 @@ parent -> child
   stop making progress, but stay alive (the coordinator must detect the
   missed heartbeat deadline and kill the process).
 
-``spec["device"]`` is the one device the child trains on (``"cpu"`` or
-``"cuda:i"``, indexed in the parent's own visible-device frame, which
-the child inherits); ``spec["n_devices"]`` is the placement's size, and
-a plan of more than one device raises in ``BuiltJob`` like any other
-failure.  On the CPU the child runs ``spec["cpu_threads"]`` intra-op
-threads, the coordinator's count at launch.  There is no compile cache to enable: the port compiles
-nothing at run time (its steps are eager).
+A job of ``spec["world_size"]`` devices runs as that many children,
+one a device: each is given its ``rank``, the ``world_size`` and the
+``store`` address of the job's process group, joins the group
+(``parallelism.dist.init_group``: NCCL on a card, gloo on the CPU), and
+then builds the ``BuiltJob`` and the ``SyntheticLM`` stream; every rank
+takes the same global batches, which the technique cuts.  A job of one
+device is a group of one rank.  Rank 0 speaks the hello / ckpt / exit
+protocol and owns the loss records; every rank heartbeats with its step
+counter, and ``hang`` wedges the rank it is sent to.  A ``stop`` goes to
+rank 0, which decides for the group: each step begins with a one-flag
+all-reduce, so every rank ends at the same step (a rank that stopped
+alone would leave the others waiting in the next collective).  Rank 0
+writes the checkpoints: the full tree, gathered from every rank.
+
+``spec["device"]`` is the rank's device (``"cpu"`` or ``"cuda:i"``,
+indexed in the parent's own visible-device frame, which the child
+inherits).  On the CPU the child runs ``spec["cpu_threads"]`` intra-op
+threads, the coordinator's count at launch.  There is no compile cache
+to enable: the port compiles nothing at run time (its steps are eager).
 
 This module is deliberately import-lean: it pulls the model/optimizer/
 data/checkpoint stacks but NEVER ``repro_torch.core`` (the scheduler),
@@ -122,45 +134,62 @@ def _run(conn, spec: dict) -> None:
                      name="saturn-hb").start()
 
     import torch
+    import torch.distributed as dist
 
-    from ..checkpoint.store import load_training_state, save_checkpoint
+    from ..checkpoint.store import save_checkpoint
     from ..data.synthetic import SyntheticLM
     from ..device import resolve_device
     from ..optim.adamw import AdamWConfig
     from ..parallelism.build import BuiltJob
+    from ..parallelism.dist import init_group
 
     dev = resolve_device(spec["device"])
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev)   # no stray context on another card
-    else:
+    if dev.type == "cpu":
         torch.set_num_threads(int(spec["cpu_threads"]))
+    rank = spec["rank"]
+    group = init_group(rank, spec["world_size"], spec["store"], dev)
     cfg = spec["model_cfg"]
-    plan = spec["technique"].plan(cfg, spec["n_devices"])
+    plan = spec["technique"].plan(cfg, spec["world_size"])
     total = spec["total_steps"]
     # Job.opt_cfg, rebuilt here so the child skips repro_torch.core
     opt_cfg = AdamWConfig(lr=spec["lr"],
                           warmup_steps=min(100, total // 10 + 1),
                           total_steps=total)
-    built = BuiltJob(cfg, plan, opt_cfg, device=dev)
+    built = BuiltJob(cfg, plan, opt_cfg, group=group)
     params, opt = built.init(spec["seed"])
-    params, opt, start_step = load_training_state(
-        spec["ckpt_path"], params, opt)
+    params, opt, start_step = built.load(spec["ckpt_path"], params, opt)
     # the durable checkpoint is authoritative: never run past the job's
     # total budget even when the coordinator's view lagged behind it
     steps_to_run = max(0, min(spec["steps_to_run"], total - start_step))
-    send({"msg": "hello", "start_step": start_step,
-          "steps_to_run": steps_to_run})
+    if rank == 0:
+        send({"msg": "hello", "start_step": start_step,
+              "steps_to_run": steps_to_run})
+
+    def commit(step_abs, loss):
+        tree = built.full_state(params, opt)    # every rank takes part
+        if tree is not None:                    # rank 0
+            save_checkpoint(spec["ckpt_path"], tree,
+                            {"step": step_abs, "loss": loss})
+            # the ack flushes pending loss records: every step at or
+            # below a durable checkpoint is then recorded parent-side,
+            # so a later crash loses no trajectory (steps PAST the
+            # checkpoint are replayed from it on resume)
+            send_with_losses({"msg": "ckpt", "step": step_abs})
 
     data = SyntheticLM(cfg, seed=spec["seed"]).batches(
         spec["batch_size"], spec["seq_len"],
         num_batches=steps_to_run, skip=start_step, device=built.device)
     ckpt_every = int(spec.get("ckpt_every_steps", 0))
+    flag = torch.zeros(1, device=built.device)
     loss = float("nan")
     compile_s = 0.0
     dt_sum, dt_n = 0.0, 0
     preempted = False
     for b in data:
-        if stop.is_set():
+        # rank 0 decides for the group whether this step runs
+        flag.fill_(float(rank == 0 and stop.is_set()))
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        if flag.item():
             preempted = True
             break
         while hang.is_set():        # wedged for real: silent AND stuck
@@ -176,23 +205,14 @@ def _run(conn, spec: dict) -> None:
             dt_sum += dt
             dt_n += 1
         state["steps"] += 1
-        losses.append((start_step + state["steps"], loss))
+        if rank == 0:
+            losses.append((start_step + state["steps"], loss))
         if ckpt_every and state["steps"] % ckpt_every == 0 \
                 and state["steps"] < steps_to_run:
-            step_abs = start_step + state["steps"]
-            save_checkpoint(spec["ckpt_path"],
-                            {"params": params, "opt": opt},
-                            {"step": step_abs, "loss": loss})
-            # the ack flushes pending loss records: every step at or
-            # below a durable checkpoint is then recorded parent-side,
-            # so a later crash loses no trajectory (steps PAST the
-            # checkpoint are replayed from it on resume)
-            send_with_losses({"msg": "ckpt", "step": step_abs})
-    step_abs = start_step + state["steps"]
-    save_checkpoint(spec["ckpt_path"], {"params": params, "opt": opt},
-                    {"step": step_abs, "loss": loss})
-    send_with_losses({"msg": "ckpt", "step": step_abs})
+            commit(start_step + state["steps"], loss)
+    commit(start_step + state["steps"], loss)
     stop.set()
+    group.destroy()
     send({"msg": "exit", "steps": state["steps"], "preempted": preempted,
           "losses": losses, "compile_s": compile_s,
           "measured_step_s": (dt_sum / dt_n) if dt_n else None})

@@ -13,9 +13,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.config import ModelConfig
+from ..parallelism import collectives as C
+from ..parallelism.context import current_tp
 from ..models.params import tree_leaves_with_paths, tree_map
 from ..models.transformer import decode_step, forward
 from ..optim.adamw import AdamWConfig, adamw_update
@@ -32,11 +35,33 @@ def _ce_from_logits(cfg: ModelConfig, logits, batch):
         n_prefix = logits.shape[1] - tokens.shape[1]  # VLM patch prefix
         pred = logits[:, n_prefix:][:, :-1]
         targets = tokens[:, 1:]
-    logp = F.log_softmax(pred.float(), dim=-1)
-    nll = -torch.take_along_dim(logp, targets[..., None].long(), dim=-1)[..., 0]
+    tp = current_tp()
+    if tp is None:
+        logp = F.log_softmax(pred.float(), dim=-1)
+        nll = -torch.take_along_dim(logp, targets[..., None].long(),
+                                    dim=-1)[..., 0]
+    else:
+        nll = _vocab_parallel_nll(pred.float(), targets, tp)
     loss = torch.mean(nll)
     return loss, {"loss": loss,
                   "perplexity": torch.exp(torch.clamp(loss, max=20.0))}
+
+
+def _vocab_parallel_nll(logits, targets, tp):
+    """-log softmax(logits)[target] where each rank holds a contiguous
+    slice of the vocab: the max, the sum of exponentials and the target's
+    logit are each reduced over the ranks (the max without gradient: it
+    only steadies the exponentials)."""
+    v = logits.shape[-1]
+    m = C.all_reduce(logits.detach().amax(-1), tp,
+                     op=dist.ReduceOp.MAX)
+    z = logits - m[..., None]
+    lse = torch.log(C.reduce_out(torch.exp(z).sum(-1), tp))
+    local = targets.long() - tp.rank * v
+    inside = (local >= 0) & (local < v)
+    picked = torch.take_along_dim(z, local.clamp(0, v - 1)[..., None],
+                                  dim=-1)[..., 0]
+    return lse - C.reduce_out(torch.where(inside, picked, 0.0), tp)
 
 
 def lm_loss(params, cfg: ModelConfig, batch, *, opts=None, remat=False):

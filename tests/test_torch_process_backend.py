@@ -9,9 +9,16 @@ budget exhaustion, and crash-then-resume across backend lifetimes.
 Beyond the reference's cases:
 - the uninterrupted process trajectory equals LocalTorchBackend's on the
   same job bit for bit (tests/test_torch_saturn_loop.py holds
-  LocalTorchBackend against the JAX package's local backend);
-- a placement of two devices fails in the child with BuiltJob's message
-  and the job is quarantined;
+  LocalTorchBackend against the JAX package's local backend): each
+  child runs its job as rank 0 of a group of one;
+- a job on two devices trains as a gloo group of two spawned ranks, its
+  trajectory within the parity bounds of the one-device run; a SIGKILL
+  or a hang of rank 1 recovers from the durable checkpoint onto the
+  uninterrupted two-rank trajectory, bit for bit, and no rank outlives
+  its job; ``SaturnSession.run(backend="process")`` places a job on
+  two devices as such a group; a two-device placement whose batch does
+  not split fails in the children and is quarantined;
+- the Trial Runner's g = 2 empirical trials run in spawned groups;
 - a child keeps stepping while the parent runs about a second of LNS
   search in process: each worker has an interpreter of its own (the GIL
   stall of ROADMAP C4 is a property of worker threads).
@@ -24,7 +31,9 @@ checkpoint every 5, faults deferred to the first one at step 5, as the
 reference's tests place them).
 """
 import dataclasses
+import multiprocessing
 import os
+import threading
 import time
 
 import numpy as np
@@ -37,13 +46,17 @@ from repro_torch.configs import get_config
 from repro_torch.core.baselines import CurrentPractice
 from repro_torch.core.chaos import ChaosTrace, RetryPolicy, WorkerFault
 from repro_torch.core.executor import simulate
+from repro_torch.core.api import SaturnSession
 from repro_torch.core.job import ClusterSpec, Job
 from repro_torch.core.lns import lns_solve
+from repro_torch.core.library import ParallelismLibrary
 from repro_torch.core.local_backend import LocalTorchBackend
-from repro_torch.core.process_backend import ProcessTorchBackend
-from repro_torch.core.profiler import Profile
+from repro_torch.core.process_backend import (ProcessTorchBackend, _Proc,
+                                               _Rank)
+from repro_torch.core.profiler import HARDWARE, Profile, TrialRunner
 from repro_torch.core.schedule import Placement, ScheduleEntry
 from repro_torch.core.solver import Choice
+from repro_torch.parallelism.techniques import DDP
 
 CFG = dataclasses.replace(get_config("xlstm-125m").reduced(), d_model=64,
                           num_heads=2, num_kv_heads=2, head_dim=32,
@@ -209,21 +222,156 @@ def test_process_trajectory_equals_local_backend(tmp_path, baseline):
 
 
 def test_two_device_placement_fails_in_the_child(tmp_path):
-    """ddp x2 reaches the child, where BuiltJob refuses a multi-device
-    plan: the coordinator gets the child's error message as a worker
-    failure, retries under its budget, then quarantines the job."""
-    jobs, profiles = mk_jobs(steps=10, gpus=2)
+    """ddp x2 of a job whose batch of 3 does not split over its two
+    ranks: the children raise, the coordinator gets a rank's error
+    message as one worker failure of the job, retries under its budget,
+    then quarantines the job; no rank outlives it."""
+    jobs = [Job("j0", CFG, 3, 32, total_steps=10, lr=1e-3, seed=0)]
+    profiles = {("j0", "ddp", 2): Profile("j0", "ddp", 2, 0.01, 1e9, True,
+                                          "t")}
     res = run(backend(tmp_path, devices=["cpu", "cpu"],
                       retry_policy=RetryPolicy(budget=1, base_s=0.1,
                                                cap_s=0.2, jitter=0.0)),
-              jobs, profiles,
-              cluster=ClusterSpec(nodes=1, gpus_per_node=2,
-                                  restart_cost_s=0.1))
+              jobs, profiles, cluster=CLUSTER2)
     assert res.worker_failures == 2
     reason = res.quarantined["j0"]
     assert "retry budget exhausted" in reason
-    assert "NotImplementedError: ddp at 2 devices: multi-device execution " \
-           "is not ported yet" in reason
+    assert "ValueError: a dim of 3 does not split over 2 ranks" in reason
+    assert no_worker_left()
+
+
+CLUSTER2 = ClusterSpec(nodes=1, gpus_per_node=2, restart_cost_s=0.1)
+GROUP_STEPS = 20
+LOSS_RTOL = 1e-5      # the loss bound of tests/test_torch_parallelism.py
+
+
+def no_worker_left():
+    return not [p for p in multiprocessing.active_children()
+                if p.name.startswith("saturn-proc-")]
+
+
+def run_two_ranks(tmp_path, chaos=None):
+    jobs, profiles = mk_jobs(steps=GROUP_STEPS, gpus=2)
+    res = run(backend(tmp_path, devices=["cpu", "cpu"], ckpt_every_steps=5),
+              jobs, profiles, cluster=CLUSTER2, chaos=chaos)
+    assert no_worker_left()
+    return res
+
+
+@pytest.fixture(scope="module")
+def two_rank_baseline(tmp_path_factory):
+    """ddp x2, uninterrupted: the trajectory the recoveries below must
+    land on."""
+    res = run_two_ranks(tmp_path_factory.mktemp("base2"))
+    assert res.worker_failures == 0 and res.quarantined == {}
+    segs = res.stats["j0"]["segments"]
+    assert [(s["n_gpus"], s["ranks"]) for s in segs] == [(2, 2)]
+    return trajectory(res, "j0")
+
+
+def test_two_device_job_trains_in_a_group(two_rank_baseline, tmp_path):
+    """ddp x2 on two CPU "devices": every rank in one gloo group, each on
+    its half of the batch; the losses are those of ddp x1 (the same job
+    in a LocalTorchBackend thread, which a one-rank child equals bit for
+    bit) within the parity bound."""
+    jobs, profiles = mk_jobs(steps=GROUP_STEPS)
+    one = trajectory(simulate(jobs, CurrentPractice(), profiles, CLUSTER,
+                              exec_backend=LocalTorchBackend(
+                                  ckpt_dir=str(tmp_path), devices=["cpu"])),
+                     "j0")
+    assert sorted(two_rank_baseline) == sorted(one) \
+        == list(range(1, GROUP_STEPS + 1))
+    for s, v in two_rank_baseline.items():
+        assert abs(v - one[s]) <= LOSS_RTOL * abs(one[s]), s
+
+
+@pytest.mark.parametrize("kind", ["sigkill", "hang"])
+def test_rank_one_fault_recovers_the_group(kind, tmp_path,
+                                           two_rank_baseline):
+    """A fault in rank 1, not rank 0: a SIGKILL (its sentinel) or a hang
+    (its own heartbeat deadline, while rank 0 waits in a collective)
+    fails the whole group once; the coordinator kills rank 0, salvages
+    the durable checkpoint and relaunches both ranks, which land the
+    uninterrupted trajectory exactly."""
+    res = run_two_ranks(tmp_path, ChaosTrace(
+        (WorkerFault(1.0, kind, "j0", min_step=5, rank=1),)))
+    assert res.worker_failures == 1 and res.restarts >= 1
+    assert res.quarantined == {}
+    segs = res.stats["j0"]["segments"]
+    assert segs[0]["failed"].startswith("rank 1: ")
+    assert segs[-1]["start_step"] >= 5
+    assert segs[-1]["start_step"] + segs[-1]["steps"] == GROUP_STEPS
+    got = trajectory(res, "j0")
+    assert set(got) == set(two_rank_baseline)
+    assert max(abs(got[s] - two_rank_baseline[s])
+               for s in two_rank_baseline) == 0.0
+
+
+def test_session_runs_a_two_device_job_as_a_group(tmp_path):
+    """SaturnSession.run(backend="process") on two CPU "devices": with
+    profiles in which ddp x2 halves the step, the solver places the job
+    on both devices, and it trains as a gloo group of two spawned
+    ranks; no rank outlives the run."""
+    sess = SaturnSession(CLUSTER2, library=ParallelismLibrary([DDP()]),
+                         device="cpu")
+    sess.submit([Job("j0", CFG, 2, 32, total_steps=10, lr=1e-3, seed=0)])
+    sess.profiles = {("j0", "ddp", g): Profile("j0", "ddp", g, 0.02 / g,
+                                               1e9, True, "t")
+                     for g in (1, 2)}
+    res = sess.run(backend="process", ckpt_dir=str(tmp_path),
+                   time_limit_s=5)
+    assert res.worker_failures == 0 and res.quarantined == {}
+    segs = res.stats["j0"]["segments"]
+    assert [(s["n_gpus"], s["ranks"]) for s in segs] == [(2, 2)]
+    assert sorted(trajectory(res, "j0")) == list(range(1, 11))
+    assert no_worker_left()
+
+
+def test_two_device_empirical_trials_run_in_groups():
+    """The Trial Runner's g = 2 trials: fsdp x2 and tp x2 on xlstm-micro
+    in spawned groups of two gloo ranks, the slowest rank's step time;
+    no peak memory is recorded on the CPU."""
+    runner = TrialRunner(ParallelismLibrary(), HARDWARE["a100"],
+                         device="cpu", devices=["cpu", "cpu"])
+    job = Job("probe", CFG, 2, 32, total_steps=1)
+    for tech in ("fsdp", "tp"):
+        p = runner.profile(job, tech, 2, mode="empirical")
+        assert p.feasible and p.source == "empirical", tech
+        assert 0 < p.step_time_s < 30 and p.terms == {}
+    assert no_worker_left()
+
+
+class _FakeProcess:
+    def __init__(self):
+        self.killed = False
+
+    def is_alive(self):
+        return not self.killed
+
+    def kill(self):
+        self.killed = True
+
+
+def test_a_group_without_step_progress_is_killed():
+    """Both ranks heartbeat on time, as a rank blocked in a collective
+    behind a wedged peer does from its sidecar thread, but no step lands
+    within the progress deadline: the coordinator kills every rank."""
+    be = ProcessTorchBackend()
+    be.progress_timeout_s = 1.0
+    be._lock = threading.Lock()
+    now = time.monotonic()
+    ranks = [_Rank(i, _FakeProcess(), None, now) for i in range(2)]
+    p = _Proc(ranks, "", now - 10.0)
+    for r in ranks:
+        p.note_heartbeat(r, 3)
+    p.started = True
+    be._by_worker = {p: None}
+    be._check_heartbeats()
+    assert not any(r.process.killed for r in ranks)    # steps just landed
+    p.last_progress_clock = time.monotonic() - 2.0
+    be._check_heartbeats()
+    assert all(r.process.killed for r in ranks)
+    assert p.fail_hint == "no step progress in 1.0s"
 
 
 def test_child_steps_while_the_parent_searches(tmp_path):

@@ -3,9 +3,10 @@ execution backend and the session (src/repro_torch/core/{profiler,
 local_backend,api}.py), on xlstm-micro (d_model 64, 2 heads, batch 2 x
 seq 32, as benchmarks/run.py's e2e scenarios run it).
 
-- Empirical trials record ddp x1 and remat-offload x1 feasible, and
-  tp x1 (outside its search space) and ddp x2 (the port's BuiltJob
-  raises NotImplementedError, a RuntimeError) infeasible.
+- Empirical trials record ddp x1 and remat-offload x1 feasible, ddp x2
+  feasible from a trial in a spawned group of two gloo ranks, and tp x1
+  (outside its search space) and ddp x2 of a job whose batch of 3 does
+  not split over two ranks (the group fails) infeasible.
 - The analytic mode and the roofline strategy raise, naming ROADMAP A12.
 - Napkin profiles of every arch, the MoE ones included, equal the JAX
   package's exactly (the same closed form over the same parameter
@@ -101,12 +102,16 @@ def test_empirical_trials_record_feasibility(probes):
         assert 0 < p.step_time_s < 30 and math.isfinite(p.mem_per_device)
     tp = runner.profile(probe, "tp", 1, mode="empirical")
     ddp2 = runner.profile(probe, "ddp", 2, mode="empirical")
+    odd = runner.profile(Job("odd", CFG, 3, 32, total_steps=1), "ddp", 2,
+                         mode="empirical")
     assert not tp.feasible and tp.step_time_s == float("inf")
-    assert not ddp2.feasible and ddp2.terms == {"trial_error": 1.0}
-    assert runner.trials == 3          # tp x1 is never tried
+    assert ddp2.feasible and ddp2.source == "empirical"
+    assert 0 < ddp2.step_time_s < 30 and ddp2.terms == {}
+    assert not odd.feasible and odd.terms == {"trial_error": 1.0}
+    assert runner.trials == 4          # tp x1 is never tried
     # the cache answers a repeat without a new trial
     assert runner.profile(probe, "ddp", 1, mode="empirical") is ddp
-    assert runner.trials == 3
+    assert runner.trials == 4
 
 
 def test_empirical_trial_needs_the_devices():
@@ -369,9 +374,11 @@ def test_losses_match_local_jax_backend_across_a_resume(tmp_path,
 
 
 def test_worker_failure_quarantines_an_unported_plan(tmp_path):
-    """A plan the port does not run (ddp x2) raises NotImplementedError
-    inside the worker: the engine sees a worker failure, retries under
-    its budget, then quarantines the job with the reason."""
+    """A plan LocalTorchBackend does not run (ddp x2: its threads cannot
+    hold a process group) raises NotImplementedError inside the worker:
+    the engine sees a worker failure, retries under its budget, then
+    quarantines the job with the reason, which names the backend that
+    runs it."""
     jobs = [Job("j0", CFG, 2, 32, total_steps=10, lr=1e-3, seed=0)]
     profiles = {("j0", "ddp", 2): Profile("j0", "ddp", 2, 0.01, 1e9, True,
                                           "t")}
@@ -383,7 +390,7 @@ def test_worker_failure_quarantines_an_unported_plan(tmp_path):
                    exec_backend=be)
     assert res.worker_failures == 2
     assert "retry budget exhausted" in res.quarantined["j0"]
-    assert "not ported yet" in res.quarantined["j0"]
+    assert 'use backend="process"' in res.quarantined["j0"]
 
 
 def test_bind_refuses_a_cluster_larger_than_its_devices():
@@ -423,8 +430,9 @@ def test_session_trains_two_jobs_locally(tmp_path):
                             seed=i) for i, lr in enumerate([1e-3, 3e-4])])
     profiles = sess.profile(mode="empirical", strategy="exhaustive")
     assert sess.gpu_counts() == [1, 2]
+    # the x2 trials ran in spawned groups of two gloo ranks
     assert {k: p.feasible for k, p in profiles.items()} == {
-        (j.name, t, g): g == 1 for j in jobs
+        (j.name, t, g): True for j in jobs
         for t in ("ddp", "remat-offload") for g in (1, 2)}
     res = sess.run(backend="local", introspect_every_s=1.0,
                    ckpt_dir=str(tmp_path), time_limit_s=5)

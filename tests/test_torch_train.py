@@ -197,8 +197,11 @@ def _plan(technique, n, cfg):
                                          ("fsdp", 2), ("ddp", 2),
                                          ("remat-offload", 4)])
 def test_built_job_refuses_what_is_not_ported(technique, n):
+    """Without a process group BuiltJob runs one device: a plan of n > 1
+    devices asks for the group its n ranks run in
+    (tests/test_torch_parallelism.py runs them)."""
     _, cfg = _cfgs("xlstm-micro")
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(ValueError, match="ranks of a process group"):
         BuiltJob(cfg, _plan(technique, n, cfg), AdamWConfig(), device="cpu")
 
 
