@@ -24,8 +24,10 @@ Layering (each layer only imports downward):
                      worker process a job segment (heartbeats, sigkill /
                      hang / corrupt fault injection, salvage, retry,
                      quarantine)
-    profiler.py      the Trial Runner: empirical trials and the napkin
-                     roofline, the JSON profile cache, HardwareSpec
+    profiler.py      the Trial Runner: empirical trials, the analytic
+                     roofline from a traced step, the napkin roofline,
+                     the roofline strategy's calibrated predictions, the
+                     JSON profile cache, HardwareSpec
     perfmodel.py     throughput curves over GPU count: anchor trials +
                      interpolation (PerfModel, the profiles contract);
                      ObservedProfiles measured-feedback overlay
@@ -44,9 +46,9 @@ Layering (each layer only imports downward):
                      (run(backend="sim"|"local"|"process"))
 
 A job of more than one GPU runs as a process group of one process a
-device: through ``backend="process"`` and the empirical trials, never
-in ``LocalTorchBackend``'s threads.  Not ported yet: the analytic and
-roofline profiling that read compiled HLO (ROADMAP A12).
+device, under ``backend="local"`` and ``backend="process"`` and in the
+empirical trials; the analytic profiles analyse it as one rank of a
+fake group (``launch/step_analysis.py``), in this process.
 """
 from .api import SaturnSession                              # noqa: F401
 from .chaos import (CapacityChange, ChaosTrace,             # noqa: F401

@@ -136,10 +136,13 @@ class SaturnSession:
         1..G — the Solver gets the dense allocation grid at the sparse
         profiling price.  ``strategy="exhaustive"`` profiles the
         geometric ladder directly and returns the legacy dict.
-        ``strategy="roofline"`` and ``mode="analytic"`` read compiled
-        HLO and raise ``NotImplementedError`` (ROADMAP A12).
-        Napkin trials fan out across ``workers`` threads (auto by
-        default); empirical trials always run serially.
+        ``strategy="roofline"`` analyses each ⟨job shape, technique,
+        count⟩ once and predicts every combo from the op counts,
+        calibrated by ``calibration_trials`` real trials.  The default
+        ``mode="analytic"`` traces the step on meta tensors
+        (:mod:`repro_torch.launch.step_analysis`) and needs no card.
+        Analytic and napkin trials fan out across ``workers`` threads
+        (auto by default); empirical trials always run serially.
         """
         self.profiles = self.runner.profile_all(
             self.jobs,
@@ -184,9 +187,11 @@ class SaturnSession:
         (:class:`~repro_torch.core.process_backend.ProcessTorchBackend`:
         heartbeats, crash detection, checkpoint salvage, retry and
         quarantine; each worker with an interpreter of its own), and runs
-        a job of g > 1 GPUs as a process group of g workers.  ``"local"``
-        runs one GPU a job: its solver is offered the one-GPU choices.
-        ``ckpt_dir`` (local/process) pins where checkpoints land.
+        a job of g > 1 GPUs as a process group of g workers.
+        ``"local"`` runs a job of g > 1 GPUs the same way, as a process
+        group of g workers (one GPU's job stays in a thread), so both
+        offer the solver every (technique, GPU count).  ``ckpt_dir``
+        (local/process) pins where checkpoints land.
 
         ``placement`` overrides ``cluster.placement`` for this run.
 
@@ -254,12 +259,6 @@ class SaturnSession:
                                                ckpt_dir=ckpt_dir,
                                                devices=self._devices())
         profiles, fleets = self.profiles, None
-        if backend == "local":
-            # LocalTorchBackend runs a job on one device (its worker
-            # threads cannot hold a process group), so its solver is
-            # offered the one-device choices
-            profiles = {k: p for k, p in profiles.items()
-                        if p.n_devices == 1}
         if self.serves:
             from ..serving.fleet import FleetManager, serve_profiles
             from .perfmodel import MergedProfiles
@@ -279,5 +278,5 @@ class SaturnSession:
                             exec_backend=exec_backend, chaos=chaos,
                             fleets=fleets)
         finally:
-            if backend == "process":
+            if exec_backend is not None:
                 exec_backend.shutdown()

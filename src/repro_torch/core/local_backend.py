@@ -21,9 +21,13 @@ CPU once per device the cluster should have
 (``devices=["cpu", "cpu"]``), so that concurrent jobs train on
 "disjoint" slices as they would on cards.
 
-Each job runs on one device: a multi-device placement fails in its
-worker (a process group needs one process a rank; see
-:class:`~repro_torch.core.process_backend.ProcessTorchBackend`).
+A launch on one device runs in a worker thread.  A launch on g > 1
+devices runs as a process group of g ranks, one spawned process a
+device, exactly as
+:class:`~repro_torch.core.process_backend.ProcessTorchBackend` runs it
+(the same rank code, checkpoint commit and load, supervision): a
+process group needs one process a rank, which threads cannot give it.
+The JAX package runs such a job as one SPMD program in its thread.
 
 Eager PyTorch holds the GIL between the operations of a step, where a
 compiled JAX step releases it for the whole step, so worker threads and
@@ -180,10 +184,13 @@ class LocalTorchBackend(ExecutionBackend):
         self.observed: Dict[Tuple, float] = {}
         self.job_stats: Dict[str, dict] = {}
         self._built_cache: Dict[Tuple, object] = {}
+        # runs the launches on more than one device (made at the first)
+        self._group_backend = None
 
     # ------------------------------------------------------------- setup
     def bind(self, jobs, profiles, cluster: ClusterSpec) -> None:
         from ..device import local_devices, resolve_device
+        self.shutdown()          # a group runner of an earlier run
         super().bind(jobs, profiles, cluster)
         self._torch_devices = (
             [resolve_device(d) for d in self._devices]
@@ -216,20 +223,10 @@ class LocalTorchBackend(ExecutionBackend):
 
     def _built_job(self, job: Job, technique, devices: List):
         """Build (or reuse) the executable for one (job, technique,
-        device-slice) choice.  A job relaunched onto the SAME choice
-        reuses its step; a changed assignment — the usual reason for a
-        restart — builds a new one.  A placement of more than one device
-        raises here, in the worker: a multi-device job runs one process
-        a rank, which threads cannot give it (``backend="process"`` can).
-        The engine records a worker failure and retries or quarantines
-        the job."""
+        device) choice of a worker thread.  A job relaunched onto the
+        SAME choice reuses its step; a changed assignment — the usual
+        reason for a restart — builds a new one."""
         from ..parallelism.build import BuiltJob
-        if len(devices) > 1:
-            raise NotImplementedError(
-                f"{technique.name} x{len(devices)}: a multi-device job "
-                "runs as a process group of one process a device, which "
-                "LocalTorchBackend's worker threads cannot hold; use "
-                "backend=\"process\" (ProcessTorchBackend)")
         key = (job.name, technique.name, tuple(str(d) for d in devices))
         with self._lock:
             built = self._built_cache.get(key)
@@ -329,8 +326,31 @@ class LocalTorchBackend(ExecutionBackend):
         return cache[key]
 
     # ------------------------------------------------------ run lifecycle
+    def _groups(self):
+        """The process backend that runs this backend's launches on more
+        than one device, reporting to this backend's run state (made at
+        the first such launch)."""
+        if self._group_backend is None:
+            from .process_backend import ProcessTorchBackend
+            pb = ProcessTorchBackend(self.library, devices=self._devices,
+                                     min_requeue_s=self.min_requeue_s,
+                                     fallback_step_s=self.fallback_step_s)
+            pb.run_for(self)
+            self._group_backend = pb
+        return self._group_backend
+
+    def shutdown(self) -> None:
+        """Stop the supervision of multi-device launches and kill any
+        rank still alive (normal runs end with none)."""
+        if self._group_backend is not None:
+            self._group_backend.shutdown()
+            self._group_backend = None
+
     def launch(self, job, entry, placement, device_class, remaining, t,
-               token) -> LocalHandle:
+               token):
+        if len(placement.devices) > 1:
+            return self._groups().launch(job, entry, placement,
+                                         device_class, remaining, t, token)
         devs = [self._torch_devices[d] for d in placement.devices]
         ckpt = os.path.join(self.ckpt_dir, f"{job.name}.npz")
         worker = _Worker(self, job, self.library.get(entry.technique),
@@ -366,6 +386,8 @@ class LocalTorchBackend(ExecutionBackend):
         return handle.worker.steps_done
 
     def is_finished(self, handle: LocalHandle) -> bool:
+        if not isinstance(handle, LocalHandle):
+            return self._group_backend.is_finished(handle)
         return handle.worker.done.is_set()
 
     def _durable_steps(self, handle: LocalHandle) -> int:
@@ -389,6 +411,8 @@ class LocalTorchBackend(ExecutionBackend):
         return 0
 
     def salvage(self, handle: LocalHandle) -> int:
+        if not isinstance(handle, LocalHandle):
+            return self._group_backend.salvage(handle)
         w = handle.worker
         w.join()
         self._finish(handle, preempted=False,
@@ -401,6 +425,8 @@ class LocalTorchBackend(ExecutionBackend):
         in-flight step, writes the checkpoint, and exits; relaunch
         resumes from it (the restart penalty the engine charges on top
         models the cluster's relaunch round-trip)."""
+        if not isinstance(handle, LocalHandle):
+            return self._group_backend.preempt(handle, t)
         w = handle.worker
         w.stop_flag.set()
         w.join()
@@ -418,6 +444,8 @@ class LocalTorchBackend(ExecutionBackend):
         return w.steps_done
 
     def complete(self, handle: LocalHandle, t: float) -> None:
+        if not isinstance(handle, LocalHandle):
+            return self._group_backend.complete(handle, t)
         w = handle.worker
         w.join()
         self._finish(handle, preempted=False)

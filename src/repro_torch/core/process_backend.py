@@ -258,16 +258,38 @@ class ProcessTorchBackend(LocalTorchBackend):
         self.progress_timeout_s = PROGRESS_TIMEOUT_S
         self._ctx = multiprocessing.get_context("spawn")
         self._monitor_thread: Optional[threading.Thread] = None
+        # the backend whose run state (clock, handles, completion and
+        # failure queues, stats, checkpoint directory) the launches
+        # report to: this one, or the LocalTorchBackend it runs the
+        # multi-device launches of (run_for)
+        self._host: LocalTorchBackend = self
 
     # ------------------------------------------------------------- setup
     def bind(self, jobs, profiles, cluster: ClusterSpec) -> None:
         # the local backend's binding resolves the device list (raising
         # without a card) and builds nothing; children own the devices
         super().bind(jobs, profiles, cluster)
+        self._start_supervision()
+
+    def run_for(self, host: LocalTorchBackend) -> None:
+        """Run the launches on more than one device of ``host``, a bound
+        LocalTorchBackend: they report to its run state, so that the
+        engine sees one backend, and this one starts supervising."""
+        self._host = host
+        self._start_supervision()
+
+    def _start_supervision(self) -> None:
         self._shutdown = threading.Event()
         self._monitor_thread = threading.Thread(
             target=self._monitor, daemon=True, name="saturn-proc-monitor")
         self._monitor_thread.start()
+
+    def _procs(self) -> List[Tuple["_Proc", "ProcHandle"]]:
+        """The live launches this backend supervises (a host
+        LocalTorchBackend's thread launches share its table)."""
+        with self._host._lock:
+            return [(p, h) for p, h in self._host._by_worker.items()
+                    if isinstance(p, _Proc)]
 
     def shutdown(self) -> None:
         """Stop supervision and kill any still-live workers (tests and
@@ -276,9 +298,7 @@ class ProcessTorchBackend(LocalTorchBackend):
         if self._monitor_thread is None:
             return
         self._shutdown.set()
-        with self._lock:
-            procs = list(self._by_worker)
-        for p in procs:
+        for p, _ in self._procs():
             self._release(p)
         self._monitor_thread.join()
 
@@ -344,7 +364,7 @@ class ProcessTorchBackend(LocalTorchBackend):
                 p.compile_s = float(m.get("compile_s") or 0.0)
                 p.losses = [(int(s), float(v))
                             for s, v in m.get("losses", [])]
-                p.finish_clock = self.now()
+                p.finish_clock = self._host.now()
                 p.done.set()
         elif kind == "error":
             if p.error_reason is None:
@@ -384,20 +404,21 @@ class ProcessTorchBackend(LocalTorchBackend):
             self._kill(p)
         p.dead_handled = True
         if p.finish_clock is None:
-            p.finish_clock = self.now()
+            p.finish_clock = self._host.now()
         p.done.set()
         if not failed:
             if not p.preempted:
-                with self._lock:
-                    if p in self._by_worker:
-                        self._finished.append(h)
+                with self._host._lock:
+                    if p in self._host._by_worker:
+                        self._host._finished.append(h)
             # preempted clean exits are consumed by preempt()
         else:
             reason = p.fail_hint or p.error_reason or "worker failed"
-            with self._lock:
-                if p in self._by_worker:    # engine already let go: stale
-                    self._failed.append((h, reason))
-        self._poke.set()
+            with self._host._lock:
+                # the engine already let go: stale
+                if p in self._host._by_worker:
+                    self._host._failed.append((h, reason))
+        self._host._poke.set()
 
     def _check_heartbeats(self) -> None:
         """Every rank has its own heartbeat deadline, and the launch a
@@ -405,9 +426,7 @@ class ProcessTorchBackend(LocalTorchBackend):
         a wedged peer keeps heartbeating from its sidecar thread, so
         only the steps show that the group is stuck."""
         now = time.monotonic()
-        with self._lock:
-            procs = list(self._by_worker.items())
-        for p, h in procs:
+        for p, h in self._procs():
             if p.dead_handled or p.done.is_set():
                 continue
             for rank in p.ranks:
@@ -434,10 +453,8 @@ class ProcessTorchBackend(LocalTorchBackend):
         """The one thread that reads the pipes: worker messages, process
         sentinels, heartbeat deadlines."""
         while not self._shutdown.is_set():
-            with self._lock:
-                procs = list(self._by_worker.items())
             waitables = {}
-            for p, h in procs:
+            for p, h in self._procs():
                 for rank in p.ranks:
                     if rank.ended:
                         continue
@@ -497,24 +514,24 @@ class ProcessTorchBackend(LocalTorchBackend):
 
     def launch(self, job: Job, entry, placement, device_class, remaining,
                t, token) -> ProcHandle:
-        ckpt = os.path.join(self.ckpt_dir, f"{job.name}.npz")
-        devs = [self._torch_devices[d] for d in placement.devices]
+        ckpt = os.path.join(self._host.ckpt_dir, f"{job.name}.npz")
+        devs = [self._host._torch_devices[d] for d in placement.devices]
         spec = self._spec(job, entry.technique, devs,
-                          file_store(self.ckpt_dir, job.name))
+                          file_store(self._host.ckpt_dir, job.name))
         spec.update(ckpt_path=ckpt, steps_to_run=int(remaining),
                     ckpt_every_steps=self.ckpt_every_steps)
         proc = self._spawn(spec, devs, job.name)
         try:
-            est = self.est_step(job.name, entry.technique, entry.n_gpus,
-                                device_class)
+            est = self._host.est_step(job.name, entry.technique,
+                                      entry.n_gpus, device_class)
         except KeyError:
             est = self.fallback_step_s
         if not math.isfinite(est) or est <= 0:
             est = self.fallback_step_s
         h = ProcHandle(proc, job, entry.technique, entry.n_gpus,
                        placement, t, est, remaining, token)
-        with self._lock:
-            self._by_worker[proc] = h
+        with self._host._lock:
+            self._host._by_worker[proc] = h
         return h
 
     def is_finished(self, handle: ProcHandle) -> bool:
@@ -528,10 +545,10 @@ class ProcessTorchBackend(LocalTorchBackend):
         p = handle.worker
         self._kill(p)
         self._release(p)
-        self._finish(handle, preempted=False,
-                     error=(p.fail_hint or p.error_reason
-                            or "worker failed"))
-        return self._durable_steps(handle)
+        self._host._finish(handle, preempted=False,
+                           error=(p.fail_hint or p.error_reason
+                                  or "worker failed"))
+        return self._host._durable_steps(handle)
 
     def preempt(self, handle: ProcHandle, t: float) -> int:
         p = handle.worker
@@ -543,15 +560,15 @@ class ProcessTorchBackend(LocalTorchBackend):
             p.done.wait(timeout=5.0)
         self._release(p)
         if p.exit_msg is not None:
-            self._finish(handle, preempted=p.preempted)
+            self._host._finish(handle, preempted=p.preempted)
             return p.steps_done
         # died instead of checkpointing: only the durable chain counts
         # (its failure record, if the monitor filed one, goes stale the
         # moment the engine drops this launch's token)
-        self._finish(handle, preempted=False,
-                     error=(p.fail_hint or p.error_reason
-                            or "died during preemption"))
-        return self._durable_steps(handle)
+        self._host._finish(handle, preempted=False,
+                           error=(p.fail_hint or p.error_reason
+                                  or "died during preemption"))
+        return self._host._durable_steps(handle)
 
     def complete(self, handle: ProcHandle, t: float) -> None:
         p = handle.worker
@@ -559,7 +576,7 @@ class ProcessTorchBackend(LocalTorchBackend):
         # exit payload is consumed, or the death is handled
         p.done.wait(timeout=self.preempt_timeout_s)
         self._release(p, timeout=self.preempt_timeout_s)
-        self._finish(handle, preempted=False)
+        self._host._finish(handle, preempted=False)
         if p.exit_msg is None:
             raise RuntimeError(
                 f"process launch of {handle.job.name} completed without "
@@ -607,7 +624,7 @@ class ProcessTorchBackend(LocalTorchBackend):
         elif fault.kind == "corrupt":
             p.fail_hint = p.rank_note(
                 victim, "injected fault: checkpoint truncated + SIGKILL")
-            ckpt = os.path.join(self.ckpt_dir, f"{name}.npz")
+            ckpt = os.path.join(self._host.ckpt_dir, f"{name}.npz")
             if os.path.exists(ckpt):
                 size = os.path.getsize(ckpt)
                 with open(ckpt, "r+b") as f:

@@ -1,7 +1,7 @@
 """The Trial Runner (paper §2): profiles every ⟨model, parallelism,
 GPU-count⟩ combination the Solver may choose.
 
-Two interchangeable backends share one cache and result type:
+Three interchangeable backends share one cache and result type:
 
 - **empirical** — run real minibatches of the job's step and time them
   (exactly the paper's mechanism: one warm-up step, then two timed
@@ -11,24 +11,32 @@ Two interchangeable backends share one cache and result type:
   A trial on g > 1 devices runs the same trial in a spawned process
   group of g ranks (``parallelism.dist.spawn``): the slowest rank's
   step and the largest peak memory over the ranks.
+- **analytic** — one traced step on meta tensors
+  (:mod:`repro_torch.launch.step_analysis`, the counterpart of the JAX
+  package's compiled-HLO analysis), whose loop-aware flops, bytes and
+  collective payloads give a three-term roofline time (compute / memory
+  / collectives) against the target hardware's constants, and whose
+  peak of live bytes is the memory a device needs.  It needs no card:
+  a fake process group stands in for the other ranks, so every count
+  is analysed as one rank of its own group.
 - **napkin** — a closed-form roofline (no step is run), the cheap
   deterministic backend for benchmarks and the performance-model
   layer's synthetic sweeps.
 
-The JAX package's third mode, ``analytic``, and its ``roofline``
-strategy read XLA's compiled HLO, which PyTorch does not produce; here
-they raise ``NotImplementedError`` (ROADMAP A12) rather than fall back
-to the napkin model.
-
-``profile_all`` supports two strategies (paper §2's <5% overhead
+``profile_all`` supports three strategies (paper §2's <5% overhead
 budget): ``"exhaustive"`` runs a real trial for every valid combo and
 returns the legacy dict; ``"interpolate"`` runs trials only at a
 geometric subset of counts per ⟨job, technique⟩ and returns a
 :class:`~repro_torch.core.perfmodel.PerfModel` of fitted throughput
-curves.  The outstanding real trials land in a versioned,
-atomically-written JSON cache (batched flushes: one rewrite per
-``flush_every`` new profiles, temp-file + ``os.replace`` so a crash
-mid-write can never corrupt the cache).  The cache's format is the JAX
+curves; ``"roofline"`` analyses each ⟨job shape, technique, count⟩
+ONCE, converts the op counts into a three-term roofline (compute / HBM
+/ interconnect) whose per-device-class efficiency coefficients are
+least-squares fit from a handful of real calibration trials, and
+predicts every other combo.  The outstanding real trials land in a
+versioned, atomically-written JSON cache (batched flushes: one rewrite
+per ``flush_every`` new profiles, temp-file + ``os.replace`` so a crash
+mid-write can never corrupt the cache); the roofline calibration
+coefficients persist in the same file.  The cache's format is the JAX
 package's, so either package reads the other's.
 """
 from __future__ import annotations
@@ -46,6 +54,8 @@ import numpy as np
 import torch
 
 from ..device import local_devices, resolve_device
+from ..launch.step_analysis import (analyze_train_step, link_seconds,
+                                    scale_analysis)
 from ..models.params import param_count
 from ..models.transformer import model_spec
 from ..parallelism.base import Plan
@@ -188,13 +198,6 @@ def _group_trial(group, cfg, plan: Plan, opt_cfg, batch_size: int,
     return float(got[0]), float(got[1]) if peak is not None else None
 
 
-def _hlo_only(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} reads XLA's compiled HLO, which PyTorch does not "
-        f"produce; it is not ported yet (ROADMAP A12). Use "
-        f"mode='empirical' or mode='napkin'")
-
-
 @dataclasses.dataclass
 class ClassCalibration:
     """Per-device-class roofline efficiency fit.
@@ -268,7 +271,8 @@ class TrialRunner:
     """Profiles ⟨job, technique, count⟩ combos.  Empirical trials run on
     ``devices`` when given, else on the devices of ``device`` (every card
     for ``"cuda"``), resolved at the first empirical trial: without a
-    card it raises there, and the napkin mode never needs one."""
+    card it raises there.  The analytic and napkin modes never need
+    one."""
 
     def __init__(self, library: ParallelismLibrary,
                  hardware: HardwareSpec = HARDWARE["a100"],
@@ -293,6 +297,12 @@ class TrialRunner:
         # one BuiltJob per ⟨shape-identical job, technique, mesh shape,
         # device⟩: empirical trials of shape-identical jobs reuse it
         self._built_cache: Dict[Tuple, BuiltJob] = {}
+        # one step analysis per ⟨shape-identical job, technique, mesh
+        # shape⟩, shared by the analytic mode and the roofline strategy,
+        # and the wall seconds each took
+        self._analysis_cache: Dict[Tuple, Dict[str, float]] = {}
+        self.analysis_wall_s: Dict[Tuple, float] = {}
+        self._analysis_lock = threading.Lock()
         # per-device-class roofline calibration (persisted in the cache)
         self.calibration: Dict[str, ClassCalibration] = {}
         if cache_path and os.path.exists(cache_path):
@@ -360,8 +370,6 @@ class TrialRunner:
         with self._lock:
             if key in self._cache:
                 return self._cache[key]
-        if mode == "analytic":
-            raise _hlo_only("mode='analytic'")
         tech = self.library.get(technique)
         if not tech.search_space(job.cfg, n_devices):
             prof = Profile(job.name, technique, n_devices, float("inf"),
@@ -372,9 +380,12 @@ class TrialRunner:
             if mode == "empirical":
                 prof = self._profile_empirical(job, technique, n_devices,
                                                hw, device_class)
-            else:
+            elif mode == "napkin":
                 prof = self._profile_napkin(job, technique, n_devices,
                                             hw, device_class)
+            else:
+                prof = self._profile_analytic(job, technique, n_devices,
+                                              hw, device_class)
             ran_trial = True
         with self._lock:
             self._cache[key] = prof
@@ -403,10 +414,17 @@ class TrialRunner:
         :class:`~repro_torch.core.perfmodel.PerfModel` whose curves
         evaluate every other count.
 
-        ``strategy="roofline"`` (and ``mode="analytic"``) raise: they
-        read compiled HLO (ROADMAP A12).  ``calibration_trials`` and
-        ``confidence_threshold`` belong to it and are accepted for the
-        JAX package's call shape.
+        ``strategy="roofline"`` runs only ``calibration_trials`` real
+        trials per device class to fit that class's roofline efficiency
+        coefficients (persisted in the profile cache, so a later run —
+        or a new device class with a cached fit — runs NO trials at
+        all), predicts every combo from the step analysis's op counts,
+        and returns a :class:`~repro_torch.core.perfmodel.PerfModel`.
+        Combos the prediction cannot be confident about — unfit
+        collective kinds in the step, memory within a few percent of
+        capacity, a poor calibration fit — fall back to real trials when
+        their confidence drops below ``confidence_threshold`` (0
+        disables the fallback, 1 escalates everything).
 
         ``classes`` (a sequence of
         :class:`~repro_torch.core.job.DeviceClass`) switches on
@@ -423,8 +441,6 @@ class TrialRunner:
             raise ValueError(
                 f"unknown profiling strategy {strategy!r}; expected one "
                 f"of {PROFILE_STRATEGIES}")
-        if strategy == "roofline":
-            raise _hlo_only("strategy='roofline'")
         counts = sorted(set(int(g) for g in gpu_counts))
         hetero = classes is not None
         if hetero:
@@ -448,6 +464,10 @@ class TrialRunner:
             return {(job.name, tech, g):
                     self._cache[(job.name, tech, g, mode, DEFAULT_CLASS)]
                     for job, tech, g, _ in tasks}
+        if strategy == "roofline":
+            return self._profile_all_roofline(
+                jobs, counts, class_counts, mode, workers, hetero,
+                calibration_trials, confidence_threshold)
         plan: Dict[Tuple[str, str, str], Tuple[Job, list, list]] = {}
         tasks = []
         for job in jobs:
@@ -480,8 +500,9 @@ class TrialRunner:
         """Run the outstanding real trials, in parallel where safe.
 
         Empirical trials time real minibatches, so they must not share
-        the machine — those always run serially.  Napkin trials are
-        arithmetic and fan out over a thread pool.
+        the machine — those always run serially.  Analytic and napkin
+        trials fan out over a thread pool (step analyses take turns:
+        ``step_analysis`` serialises them).
         """
         seen = set()
         todo = []
@@ -504,6 +525,134 @@ class TrialRunner:
                     for job, tech, g, dc in todo]
             for f in futs:
                 f.result()
+
+    # ------------------------------------------------- roofline strategy
+    def _calibration_combos(self, combos, k: int, mode: str,
+                            local: Optional[int]):
+        """Pick the ~k ⟨job, technique, count⟩ combos whose real trials
+        anchor one class's calibration: round-robin over distinct
+        (job, technique) pairs, alternating each pair's largest and
+        smallest valid count so the fit sees both the collective-heavy
+        and the single-device regime.  Empirical trials can only run on
+        the ``local`` counts the runner's devices host."""
+        picked, out = set(), []
+        i = 0
+        while len(out) < max(1, k) and i < 4 * max(1, len(combos)):
+            job, tech_name, valid = combos[i % len(combos)]
+            i += 1
+            cts = [g for g in valid if g <= local] \
+                if mode == "empirical" else valid
+            if not cts:
+                continue
+            g = cts[-1] if len(out) % 2 == 0 else cts[0]
+            key = (job.name, tech_name, g)
+            if key in picked:
+                continue
+            picked.add(key)
+            out.append((job, tech_name, g))
+        return out
+
+    def _profile_all_roofline(self, jobs, counts, class_counts, mode,
+                              workers, hetero, calibration_trials,
+                              confidence_threshold):
+        from .perfmodel import PerfModel, ThroughputCurve
+        # the counts an empirical trial can host, read once
+        local = len(self._local_devices()) if mode == "empirical" else None
+        plan: Dict[Tuple[str, str, str], Tuple[Job, list]] = {}
+        by_class: Dict[str, list] = {}
+        for job in jobs:
+            for dc, cts in class_counts.items():
+                for tech_name, tech in self.library.items():
+                    valid = [g for g in cts
+                             if tech.search_space(job.cfg, g)]
+                    if not valid:
+                        continue
+                    plan[(job.name, tech_name, dc)] = (job, valid)
+                    by_class.setdefault(dc, []).append(
+                        (job, tech_name, valid))
+        # ---- 1) per-class calibration: reuse a persisted fit when one
+        # exists for this mode, otherwise run the calibration trials
+        calib: Dict[str, list] = {}
+        tasks = []
+        for dc, combos in by_class.items():
+            cached = self.calibration.get(dc)
+            if cached is not None and cached.mode == mode and \
+                    cached.n_points >= 1:
+                continue
+            calib[dc] = self._calibration_combos(
+                combos, calibration_trials, mode, local)
+            tasks.extend((job, tech_name, g, dc)
+                         for job, tech_name, g in calib[dc])
+        self._run_trials(tasks, mode, workers)
+        for dc, picked in calib.items():
+            hw = self._class_hw(dc)
+            pts = []
+            for job, tech_name, g in picked:
+                p = self._cache[(job.name, tech_name, g, mode, dc)]
+                if not (math.isfinite(p.step_time_s)
+                        and p.step_time_s > 0):
+                    continue
+                tech_plan = self.library.get(tech_name).plan(job.cfg, g)
+                feats, _, _ = self._raw_features(job, tech_plan, hw, mode)
+                pts.append((feats, p.step_time_s))
+            self.calibration[dc] = fit_calibration(dc, pts, mode) if pts \
+                else ClassCalibration(dc, (1.0, 1.0, 1.0), 0,
+                                      float("inf"), mode)
+        # ---- 2) predict every combo; collect low-confidence escalations
+        anchors: Dict[Tuple[str, str, str], Dict[int, Profile]] = {}
+        escalate = []
+        n_predicted = 0
+        for (jname, tech_name, dc), (job, valid) in plan.items():
+            hw = self._class_hw(dc)
+            cal = self.calibration[dc]
+            a: Dict[int, Profile] = {}
+            for g in valid:
+                real = self._cache.get((jname, tech_name, g, mode, dc))
+                if real is not None:
+                    a[g] = real
+                    continue
+                pred = self._predict_roofline(job, tech_name, g, hw, dc,
+                                              cal, mode)
+                hostable = mode != "empirical" or g <= local
+                if pred.terms["confidence"] < confidence_threshold \
+                        and hostable:
+                    escalate.append((job, tech_name, g, dc))
+                a[g] = pred
+                n_predicted += 1
+            anchors[(jname, tech_name, dc)] = a
+        # ---- 3) escalated combos get REAL trials that replace their
+        # predictions (and land in the persistent cache)
+        self._run_trials(escalate, mode, workers)
+        for job, tech_name, g, dc in escalate:
+            anchors[(job.name, tech_name, dc)][g] = \
+                self._cache[(job.name, tech_name, g, mode, dc)]
+        self.roofline_stats = {
+            "predicted": n_predicted - len(escalate),
+            "escalated": len(escalate),
+            "calibration_trials": sum(len(v) for v in calib.values()),
+        }
+        # predictions are cached too (source="roofline", so they can
+        # never be mistaken for a real trial of any mode)
+        with self._lock:
+            for (jname, tech_name, dc), a in anchors.items():
+                for g, p in a.items():
+                    if p.source == "roofline":
+                        self._cache[(jname, tech_name, g, "roofline",
+                                     dc)] = p
+                        self._dirty += 1
+        self.flush()
+        curves = {}
+        for (jname, tech_name, dc), (job, valid) in plan.items():
+            curve = ThroughputCurve(
+                jname, tech_name, self._class_hw(dc).hbm_capacity,
+                anchors[(jname, tech_name, dc)], valid=valid,
+                domain=class_counts[dc], device_class=dc)
+            if hetero:
+                curves[(jname, tech_name, dc)] = curve
+            else:
+                curves[(jname, tech_name)] = curve
+        return PerfModel(curves, counts,
+                         counts_by_class=class_counts if hetero else None)
 
     # --------------------------------------------------------- empirical
     def _profile_empirical(self, job: Job, technique: str, n_devices: int,
@@ -556,6 +705,57 @@ class TrialRunner:
             with self._lock:
                 self._built_cache.setdefault(key, built)
         return built
+
+    # ---------------------------------------------------------- analytic
+    def _profile_analytic(self, job: Job, technique: str, n_devices: int,
+                          hw: HardwareSpec, device_class: str) -> Profile:
+        tech = self.library.get(technique)
+        plan = tech.plan(job.cfg, n_devices)
+        return self._finish(job, technique, n_devices,
+                            self._roofline_from_analysis(job, plan, hw),
+                            "analytic", hw, device_class)
+
+    def _analysis(self, job: Job, plan: Plan) -> Dict[str, float]:
+        """Memoized step analysis per ⟨job-shape, technique,
+        mesh-shape⟩ (:func:`~repro_torch.launch.step_analysis.
+        analyze_train_step` as rank 0, fp32 parameters and AdamW state,
+        as the JAX package lowers its step), shared by the analytic
+        mode and the roofline strategy.  Analyses take turns (they
+        share the process's default group), so a trial thread that asks
+        for a step another thread is analysing waits for its result."""
+        key = self._shape_key(job, plan.technique, plan.mesh_shape)
+        with self._analysis_lock:
+            a = self._analysis_cache.get(key)
+            if a is None:
+                t0 = time.perf_counter()
+                a = analyze_train_step(job.cfg, plan, job.opt_cfg,
+                                       job.batch_size, job.seq_len)
+                with self._lock:
+                    self._analysis_cache[key] = a
+                    self.analysis_wall_s[key] = time.perf_counter() - t0
+        return a
+
+    def _roofline_from_analysis(self, job: Job, plan: Plan,
+                                hw: HardwareSpec) -> Dict[str, float]:
+        """The analytic mode's terms (a step that cannot be analysed
+        raises: a fake group hosts every count, so no combo needs the
+        JAX package's napkin fallback).  The analysis counts one rank's
+        step with every layer, every step of a recurrence and every
+        remat recompute (the JAX package's ``cost_analysis()`` counts a
+        scanned layer group once); the memory a device needs is the
+        step's peak of live bytes."""
+        a = self._analysis(job, plan)
+        n = plan.n_devices
+        link_s = link_seconds(a["collectives"], n, hw.link_bw)[0] \
+            if n > 1 else 0.0
+        return {
+            "compute_s": a["flops"] / hw.flops,
+            "memory_s": a["bytes_written"] / hw.hbm_bw,
+            "collective_s": link_s,
+            "hlo_flops": a["flops"] * n,
+            "collective_bytes": a["collectives"]["total"],
+            "mem_per_device": a["peak_bytes"],
+        }
 
     # ------------------------------------------------------------ napkin
     def _profile_napkin(self, job: Job, technique: str, n_devices: int,
@@ -682,6 +882,96 @@ class TrialRunner:
             "mem_per_device": raw["mem_per_device"],
             "utilization": raw["utilization"],
         }
+
+    # ---------------------------------------------------------- roofline
+    #
+    # strategy="roofline": one step analysis per ⟨job-shape, technique,
+    # count⟩, per-class efficiency coefficients fit from a handful of
+    # real calibration trials — every other combo is predicted, not run.
+
+    def _raw_features(self, job: Job, plan: Plan, hw: HardwareSpec,
+                      mode: str = "analytic"
+                      ) -> Tuple[Tuple[float, float, float],
+                                 Dict[str, float], List[str]]:
+        """Raw roofline features for one combo: ``(dominant, link,
+        fixed)`` seconds (technique overhead folded in), the term dict
+        for the Profile record, and any UNFIT collective kinds (present
+        in the step, absent from the ring model — a low-confidence
+        signal).
+
+        Op counts come from the combo's own memoized step analysis (a
+        step that cannot be analysed raises); under ``mode="napkin"``,
+        whose simulated ground truth is the closed-form model itself,
+        the closed-form napkin terms stand in.
+        """
+        g = plan.n_devices
+        unfit: List[str] = []
+        if mode != "napkin":
+            n_base, analysis = self._base_analysis(job, plan)
+            scaled = scale_analysis(analysis, n_base, g)
+            util = self._utilization(job, plan)
+            compute_s = scaled["flops"] / (hw.flops * util)
+            memory_s = scaled["bytes_written"] / hw.hbm_bw
+            collective_s, unfit = link_seconds(
+                scaled["collectives"], g, hw.link_bw) if g > 1 \
+                else (0.0, [])
+            terms = {"hlo_flops": scaled["flops"] * g,
+                     "collective_bytes": scaled["collectives"]["total"],
+                     "utilization": util, "hlo_base_n": float(n_base)}
+        else:
+            raw = self._napkin_raw(job, plan, hw)
+            compute_s = raw["compute_s"]
+            memory_s = raw["memory_s"]
+            collective_s = raw["collective_s"]
+            terms = {"hlo_flops": raw["hlo_flops"],
+                     "collective_bytes": raw["collective_bytes"],
+                     "utilization": raw["utilization"]}
+        fixed_s = self._fixed_step_s(job.cfg, g)
+        ovh = self.library.get(plan.technique).step_overhead()
+        feats = (ovh * max(compute_s, memory_s), ovh * collective_s,
+                 ovh * fixed_s)
+        terms.update({"compute_s": compute_s, "memory_s": memory_s,
+                      "collective_s": collective_s, "fixed_s": fixed_s})
+        return feats, terms, unfit
+
+    def _base_analysis(self, job: Job, plan: Plan
+                       ) -> Tuple[int, Dict[str, float]]:
+        """The ⟨base count, step analysis⟩ this combo's raw terms scale
+        from: always the combo's own count, since a fake process group
+        hosts any count (the JAX package falls back to the largest count
+        its local devices host, and to the napkin terms below that)."""
+        return plan.n_devices, self._analysis(job, plan)
+
+    def _predict_roofline(self, job: Job, technique: str, n_devices: int,
+                          hw: HardwareSpec, device_class: str,
+                          cal: ClassCalibration,
+                          mode: str = "analytic") -> Profile:
+        """One predicted Profile (``source="roofline"``) with a
+        confidence term the fallback knob acts on."""
+        tech = self.library.get(technique)
+        plan = tech.plan(job.cfg, n_devices)
+        feats, terms, unfit = self._raw_features(job, plan, hw, mode)
+        t = cal.predict(feats)
+        mem = self._mem_estimate(job, plan)
+        confidence = 1.0
+        if cal.n_points < 2:
+            confidence *= 0.5
+        if cal.residual > 0.25:
+            confidence *= 0.5
+        if unfit:
+            confidence *= 0.25
+            terms["unfit_collectives"] = float(len(unfit))
+        # memory-boundary cases: the fit-or-doesn't-fit call is made on
+        # an ESTIMATE — within a few percent of capacity the analytic
+        # answer is a coin flip, so flag it for escalation
+        if hw.hbm_capacity > 0 and \
+                0.95 <= mem / hw.hbm_capacity <= 1.05:
+            confidence *= 0.25
+        terms["confidence"] = confidence
+        terms["modeled_step_s"] = t
+        return Profile(job.name, technique, n_devices, t, mem,
+                       mem <= hw.hbm_capacity, "roofline", terms,
+                       device_class=device_class)
 
     # -------------------------------------------------------------- misc
     def flush(self) -> None:

@@ -101,6 +101,15 @@ def init_params(spec_tree, seed: int = 0, dtype=torch.float32,
                     if is_spec(s) else s, spec_tree)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    """A tensor's shape and dtype, allocating nothing: the counterpart
+    of ``jax.ShapeDtypeStruct`` (``launch.step_analysis`` makes meta
+    tensors of them)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
 def param_count(spec_tree) -> int:
     return int(sum(int(np.prod(s.shape))
                    for _, s in tree_leaves_with_paths(spec_tree)))

@@ -57,8 +57,9 @@ class ParamGather:
                  dims: List[Optional[int]]):
         self.axis = axis
         self._dim = {id(t): d for t, d in zip(leaves, dims) if d is not None}
-        # storage address of a whole tensor -> (the tensor, weakly; the
-        # rank's part; its dim)
+        # storage of a whole tensor (its StorageImpl's address: a meta
+        # tensor has one too, where its data pointer is 0) -> (the
+        # tensor, weakly; the rank's part; its dim)
         self._wholes: Dict[int, tuple] = {}
 
     def __call__(self, tree, r: Optional[int] = None):
@@ -83,7 +84,7 @@ class ParamGather:
         wholes = _Gather.apply(self.axis, tuple(dims), *parts) \
             if parts else ()
         for w, p, d in zip(wholes, parts, dims):
-            self._wholes[w.untyped_storage().data_ptr()] = (
+            self._wholes[w.untyped_storage()._cdata] = (
                 weakref.ref(w), p.detach(), d)
         it = iter(zip(wholes, picks))
 
@@ -99,7 +100,7 @@ class ParamGather:
     def _pack(self, t):
         if t.layout is not torch.strided or t.numel() == 0:
             return t
-        key = t.untyped_storage().data_ptr()
+        key = t.untyped_storage()._cdata
         entry = self._wholes.get(key)
         if entry is None:
             return t

@@ -7,22 +7,23 @@ seq 32, as benchmarks/run.py's e2e scenarios run it).
   feasible from a trial in a spawned group of two gloo ranks, and tp x1
   (outside its search space) and ddp x2 of a job whose batch of 3 does
   not split over two ranks (the group fails) infeasible.
-- The analytic mode and the roofline strategy raise, naming ROADMAP A12.
 - Napkin profiles of every arch, the MoE ones included, equal the JAX
   package's exactly (the same closed form over the same parameter
   counts), and the profile cache round-trips through the JAX package's
   JSON both ways.
 - Both of ``bench_e2e``'s scenarios pass on
   ``LocalTorchBackend(devices=["cpu", "cpu"])`` with the benchmark's own
-  asserts; the port runs one device a job, so the restart scenario flips
-  j0 from ddp x1 to remat-offload x1, as the benchmark does on one
-  device.  Step counts are sized from the measured trial, as the
+  asserts; the restart scenario flips j0 from ddp x1 to remat-offload
+  x1, as the benchmark does on one device.  Step counts are sized from the measured trial, as the
   benchmark's ``steps_for`` does, but for seconds rather than minutes.
 - One job run through the port's and the JAX package's local backends
   under the same fixed two-segment schedule (ddp x1 for 4 steps, then
   remat-offload x1 for 4 more from the checkpoint), from the same
   start checkpoint, gives per-step losses within atol 2e-5, the
   tolerance of tests/test_torch_train.py's 20-step trajectory.
+- LocalTorchBackend runs a ddp x2 job as a group of two spawned ranks,
+  to the process backend's losses bit for bit, and a backend="local"
+  session offers its solver the two-GPU choices.
 - A session trains two jobs through backend="local", then again through
   backend="process" (tests/test_torch_process_backend.py holds the
   process backend itself).
@@ -57,14 +58,13 @@ from repro.parallelism.techniques import RematOffload as JRematOffload
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.api import SaturnSession
 from repro_torch.core.baselines import CurrentPractice, SaturnStatic
-from repro_torch.core.chaos import RetryPolicy
 from repro_torch.core.executor import LocalRunner, simulate
 from repro_torch.core.job import ClusterSpec, Job
 from repro_torch.core.library import ParallelismLibrary
 from repro_torch.core.local_backend import LocalTorchBackend
+from repro_torch.core.process_backend import ProcessTorchBackend
 from repro_torch.core.portfolio import join_stragglers, solve_portfolio
-from repro_torch.core.profiler import (HARDWARE, Profile, TrialRunner,
-                                       hardware_from_device)
+from repro_torch.core.profiler import HARDWARE, Profile, TrialRunner
 from repro_torch.core.schedule import (Placement, Policy, Schedule,
                                        ScheduleEntry)
 from repro_torch.core.solver import Choice, greedy_schedule, objective_value
@@ -118,20 +118,6 @@ def test_empirical_trial_needs_the_devices():
     runner = TrialRunner(_lib(), device="cpu")
     with pytest.raises(RuntimeError, match="needs 2 local devices"):
         runner.profile(Job("p", CFG, 2, 32, 1), "ddp", 2, mode="empirical")
-
-
-def test_hlo_modes_raise_naming_a12():
-    runner = TrialRunner(_lib(), device="cpu")
-    job = Job("p", CFG, 2, 32, 1)
-    with pytest.raises(NotImplementedError, match="A12"):
-        runner.profile(job, "ddp", 1)                 # mode="analytic"
-    with pytest.raises(NotImplementedError, match="A12"):
-        runner.profile_all([job], [1], mode="empirical",
-                            strategy="roofline")
-    with pytest.raises(NotImplementedError, match="A12"):
-        runner.profile_all([job], [1], mode="analytic")
-    with pytest.raises(ValueError, match="CUDA device"):
-        hardware_from_device("cpu")
 
 
 NAPKIN_ARCHS = list(ARCH_IDS)
@@ -373,24 +359,62 @@ def test_losses_match_local_jax_backend_across_a_resume(tmp_path,
                                atol=LOSS_ATOL, rtol=0)
 
 
-def test_worker_failure_quarantines_an_unported_plan(tmp_path):
-    """A plan LocalTorchBackend does not run (ddp x2: its threads cannot
-    hold a process group) raises NotImplementedError inside the worker:
-    the engine sees a worker failure, retries under its budget, then
-    quarantines the job with the reason, which names the backend that
-    runs it."""
-    jobs = [Job("j0", CFG, 2, 32, total_steps=10, lr=1e-3, seed=0)]
+def _ddp2_run(be):
+    """xlstm-micro under a ddp x2 profile on two CPU "devices", through
+    ``be``; the backend is shut down after the run."""
+    jobs = [Job("j0", CFG, 2, 32, total_steps=6, lr=1e-3, seed=0)]
     profiles = {("j0", "ddp", 2): Profile("j0", "ddp", 2, 0.01, 1e9, True,
                                           "t")}
-    be = LocalTorchBackend(library=_lib(), ckpt_dir=str(tmp_path),
-                           devices=CPUS,
-                           retry_policy=RetryPolicy(budget=1, base_s=0.1,
-                                                    cap_s=0.2, jitter=0.0))
-    res = simulate(jobs, CurrentPractice(), profiles, E2E_CLUSTER,
-                   exec_backend=be)
-    assert res.worker_failures == 2
-    assert "retry budget exhausted" in res.quarantined["j0"]
-    assert 'use backend="process"' in res.quarantined["j0"]
+    try:
+        return simulate(jobs, CurrentPractice(), profiles, E2E_CLUSTER,
+                        exec_backend=be)
+    finally:
+        be.shutdown()
+
+
+def test_local_backend_runs_a_two_device_job_as_a_process_group(tmp_path):
+    """LocalTorchBackend runs a ddp x2 launch as a group of two spawned
+    ranks, the process backend's launch: the job completes, and its
+    losses equal the same schedule's under ProcessTorchBackend bit for
+    bit (the same rank code on the same gloo group shape, each child with
+    the parent's thread count, so the reduction order is the same)."""
+    local = _ddp2_run(LocalTorchBackend(library=_lib(),
+                                        ckpt_dir=str(tmp_path / "local"),
+                                        devices=CPUS))
+    proc = _ddp2_run(ProcessTorchBackend(library=_lib(),
+                                         ckpt_dir=str(tmp_path / "proc"),
+                                         devices=CPUS))
+    for res in (local, proc):
+        assert res.worker_failures == 0 and res.quarantined == {}
+        st = res.stats["j0"]
+        assert [(s["technique"], s["n_gpus"]) for s in st["segments"]] == \
+            [("ddp", 2)]
+        assert sum(s["steps"] for s in st["segments"]) == 6
+        assert st["segments"][0]["ranks"] == 2
+    assert local.stats["j0"]["losses"] == proc.stats["j0"]["losses"]
+    assert [s for s, _ in local.stats["j0"]["losses"]] == list(range(1, 7))
+    assert os.path.exists(tmp_path / "local" / "j0.npz")
+
+
+def test_local_session_offers_the_solver_every_count(tmp_path):
+    """``run(backend="local")`` plans over every (technique, count) the
+    profiles hold, the two-GPU choices included."""
+    offered = []
+
+    class Recording(CurrentPractice):
+        def plan(self, jobs, remaining, profiles, cluster, current):
+            offered.extend(k for k in profiles)
+            return super().plan(jobs, remaining, profiles, cluster,
+                                current)
+
+    sess = SaturnSession(E2E_CLUSTER, library=_lib(), device="cpu")
+    sess.submit([Job("j0", CFG, 2, 32, total_steps=2, lr=1e-3, seed=0)])
+    sess.profile(mode="napkin", strategy="exhaustive")
+    res = sess.run(policy=Recording(), backend="local",
+                   ckpt_dir=str(tmp_path))
+    assert ("j0", "ddp", 2) in offered and ("j0", "ddp", 1) in offered
+    assert res.worker_failures == 0
+    assert sum(s["steps"] for s in res.stats["j0"]["segments"]) == 2
 
 
 def test_bind_refuses_a_cluster_larger_than_its_devices():
