@@ -62,7 +62,14 @@ cuda`` on four cards):
   ``ddp`` and ``remat-offload`` two steps each through ``BuiltJob`` as
   rank 0 of a world-size-1 NCCL group, held bit for bit (losses, grad
   norms, every parameter) against the no-group ``BuiltJob``, with the
-  group's set-up, NCCL's version, s a step and peak memory.
+  group's set-up, NCCL's version, s a step and peak memory;
+- ``par_2d_group1``: the same for the dry run's rules plan on (data 1,
+  model 1) (two mesh axes, their flattened group, the bucketed gradient
+  all-reduce), against the no-group ``ddp`` step;
+- ``dryrun_one``: one full-width combination of the multi-pod dry run,
+  gemma3-4b ``train_4k`` on the 16x16 mesh, through ``run_one`` on the
+  host's CPU (rank 0's step traced on meta tensors in a fake group of
+  256 ranks), gated on ``status == "ok"``, with its ``wall_s``.
 
 Then Saturn's own loop (profile -> solve -> execute -> observe ->
 replan) on xlstm-125m jobs at full width and 4 layers (the steps are
@@ -170,8 +177,11 @@ MOE_CHECK_B, MOE_CHECK_S = 2, 256
 MOE_W_ATOL, MOE_FP32_RTOL = 1e-6, 1e-5
 # par_group1: full-width xlstm-125m at the Saturn jobs' shape, PAR_STEPS
 # steps a technique, as rank 0 of a world-size-1 NCCL group and without a
-# group
+# group; par_2d_group1 the same for the dry run's rules plan on this mesh
 PAR_STEPS = 2
+PAR_2D_MESH = (("data", 1), ("model", 1))
+# dryrun_one: (arch, shape, multi_pod) of the dry run's combination
+DRYRUN_ONE = ("gemma3-4b", "train_4k", False)
 
 
 def emit(phase, **kv):
@@ -1497,17 +1507,16 @@ def train_phases():
 
 # ------------------------------------------------- process groups
 
-def par_group1():
-    """xlstm-125m at full width and ``HOST_LAYERS`` layers, fp32, B 8 x S
-    128: ddp and remat-offload, PAR_STEPS steps each, through the
-    multi-device BuiltJob as rank 0 of a world-size-1 NCCL group and
-    through the no-group BuiltJob from the same seed and batches; losses,
-    grad norms and every parameter bit-equal.  Times the group's set-up: init
-    (with ``device_id`` bound NCCL builds its communicator there) and
-    the first collective."""
+def groups_of_one(phase, plans):
+    """For each (plan, its no-group plan) of ``plans(cfg)`` (by name), on
+    xlstm-125m at full width and ``HOST_LAYERS`` layers, fp32, B 8 x S
+    128: PAR_STEPS steps through the multi-device BuiltJob as rank 0 of
+    a world-size-1 NCCL group and through the no-group BuiltJob from the
+    same seed and batches; losses, grad norms and every parameter
+    bit-equal.  Times the group's set-up: init (with ``device_id`` bound
+    NCCL builds its communicator there) and the first collective."""
     import torch
     import torch.distributed as dist
-    from repro_torch.core.library import ParallelismLibrary
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.models.params import tree_leaves_with_paths
     from repro_torch.optim.adamw import AdamWConfig
@@ -1515,11 +1524,10 @@ def par_group1():
     from repro_torch.parallelism.dist import (file_store, init_group,
                                               nccl_version)
     cfg = host_cfg()
-    lib = ParallelismLibrary()
     opt_cfg = AdamWConfig(lr=3e-4, total_steps=100, warmup_steps=5)
     batches = list(SyntheticLM(cfg, seed=0).batches(
         SATURN_B, SATURN_S, num_batches=PAR_STEPS, device="cuda"))
-    d = saturn_dir("par_group1")
+    d = saturn_dir(phase)
     t0 = time.perf_counter()
     group = init_group(0, 1, file_store(str(d)), torch.device("cuda", 0))
     init_s = time.perf_counter() - t0
@@ -1529,11 +1537,11 @@ def par_group1():
     first_collective_s = time.perf_counter() - t0
     out = {}
     try:
-        for tech in ("ddp", "remat-offload"):
-            plan = lib.get(tech).plan(cfg, 1)
+        for tech, (plan, alone) in plans(cfg).items():
             runs = {}
             for name, grp in (("no_group", None), ("group", group)):
-                job = BuiltJob(cfg, plan, opt_cfg, device="cuda", group=grp)
+                job = BuiltJob(cfg, plan if grp else alone, opt_cfg,
+                               device="cuda", group=grp)
                 params, opt = job.init(0)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -1552,7 +1560,7 @@ def par_group1():
             if a["loss"] != b["loss"] or a["grad_norm"] != b["grad_norm"] \
                     or unequal:
                 raise AssertionError(
-                    f"par_group1: {tech} in a group of one is not the "
+                    f"{phase}: {tech} in a group of one is not the "
                     f"no-group step: {a['loss']} {b['loss']} "
                     f"{a['grad_norm']} {b['grad_norm']} {unequal[:5]}")
             out[tech] = {"no_group": a, "group": b,
@@ -1568,12 +1576,55 @@ def par_group1():
             "first_collective_s": first_collective_s, "techniques": out}
 
 
+def par_group1():
+    """ddp and remat-offload (:func:`groups_of_one`)."""
+    from repro_torch.core.library import ParallelismLibrary
+    lib = ParallelismLibrary()
+
+    def plans(cfg):
+        return {tech: (lib.get(tech).plan(cfg, 1),) * 2
+                for tech in ("ddp", "remat-offload")}
+    return groups_of_one("par_group1", plans)
+
+
+def par_2d_group1():
+    """The dry run's rules plan on (data 1, model 1): its mesh of two
+    axes and their flattened group, placements, the bucketed gradient
+    all-reduce and the batch axes, against the one-device ddp step
+    (:func:`groups_of_one`)."""
+    from repro_torch.core.library import ParallelismLibrary
+    from repro_torch.testing.parallel_check import rules_plan
+
+    def plans(cfg):
+        return {"rules": (rules_plan(cfg, PAR_2D_MESH),
+                          ParallelismLibrary().get("ddp").plan(cfg, 1))}
+    out = groups_of_one("par_2d_group1", plans)
+    return {"mesh": dict(PAR_2D_MESH), **out}
+
+
+def dryrun_one():
+    """One full-width combination of the multi-pod dry run through
+    ``run_one``: rank 0 of DRYRUN_ONE's step traced on meta tensors in
+    a fake group of 256 ranks (host CPU only, no card)."""
+    from repro_torch.launch.dryrun import run_one
+    arch, shape, multi_pod = DRYRUN_ONE
+    rec = run_one(arch, shape, multi_pod, verbose=False)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dryrun_one: {rec.get('error', rec)}\n"
+                             f"{rec.get('traceback', '')}")
+    return rec
+
+
 def par_phases(smi):
-    """The process-group phase; the four kernel counters stay at 0."""
+    """The process-group phases; the four kernel counters stay at 0."""
     for f in kernel_wrappers().values():
         f.launches = 0
     emit("par_group1", nvidia_smi=smi, **par_group1(),
          kernel_launches=check_no_launches("par_group1"))
+    emit("par_2d_group1", nvidia_smi=smi, **par_2d_group1(),
+         kernel_launches=check_no_launches("par_2d_group1"))
+    emit("dryrun_one", **dryrun_one(),
+         kernel_launches=check_no_launches("dryrun_one"))
 
 
 # ------------------------------------------------------- Saturn's loop

@@ -1,7 +1,9 @@
-"""Assigned architecture configs (``get_config(<id>)``) and synthetic
-batches.  Own copies of the JAX package's configs; ``concrete_batch``
-draws from the same ``np.random.RandomState`` stream, so it gives the
-same tokens, as torch tensors on ``device``.
+"""Assigned architecture configs (``get_config(<id>)``), the inputs of
+the four workload shapes and synthetic batches.  Own copies of the JAX
+package's configs; ``input_specs`` gives shapes and dtypes (no
+allocation) for the dry run, and ``concrete_batch`` draws from the same
+``np.random.RandomState`` stream, so it gives the same tokens, as torch
+tensors on ``device``.
 """
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.config import ModelConfig
+from ..models.config import InputShape, ModelConfig
+from ..models.params import ShapeDtype
 
 ARCH_IDS = [
     "stablelm-12b",
@@ -31,6 +34,31 @@ def get_config(arch_id: str) -> ModelConfig:
     mod = importlib.import_module(
         "repro_torch.configs." + arch_id.replace("-", "_").replace(".", "_"))
     return mod.CONFIG
+
+
+def shape_supported(cfg: ModelConfig, shape: InputShape) -> bool:
+    """long_500k only for sub-quadratic / windowed archs."""
+    if shape.name == "long_500k":
+        return cfg.long_context
+    return True
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape, dtype=torch.bfloat16):
+    """The model inputs of ``shape`` as ``ShapeDtype`` (train / prefill:
+    the full sequence; decode: one token, the decode state apart)."""
+    b, s = shape.global_batch, shape.seq_len
+    tok = lambda *sh: ShapeDtype(sh, torch.int32)
+    if shape.mode == "decode":
+        return {"tokens": tok(b, 1)}
+    if cfg.frontend == "audio":
+        # EnCodec frame embeddings (stub frontend) + codec-token labels
+        return {"embeds": ShapeDtype((b, s, cfg.d_model), dtype),
+                "labels": tok(b, s)}
+    if cfg.frontend == "vision":
+        p = cfg.num_patch_tokens
+        return {"embeds": ShapeDtype((b, p, cfg.d_model), dtype),
+                "tokens": tok(b, s - p)}
+    return {"tokens": tok(b, s)}
 
 
 def concrete_batch(cfg: ModelConfig, batch: int, seq: int, key=None,

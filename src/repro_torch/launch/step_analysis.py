@@ -201,7 +201,7 @@ class StepCounter(TorchDispatchMode):
     :func:`analyze_step` runs it on meta tensors, and it counts a real
     step the same way (``result()`` gives the same dict)."""
 
-    def __init__(self):
+    def __init__(self, snapshot_at: Optional[int] = None):
         super().__init__()
         self.flops = 0.0
         self.bytes_written = 0.0
@@ -212,6 +212,13 @@ class StepCounter(TorchDispatchMode):
         # frees them)
         self._storages: Dict[int, tuple] = {}
         self._ops: Dict[object, _Op] = {}
+        # with ``snapshot_at``: each live storage's (op, shape, dtype),
+        # and the live bytes by (op, shape, dtype) when they first reach
+        # it
+        self.snapshot_at = snapshot_at
+        self.at_peak: Optional[List[tuple]] = None
+        self._what: Dict[int, tuple] = {}
+        self._func = None
 
     def track(self, t: torch.Tensor) -> None:
         """Count ``t``'s storage as live until it is freed."""
@@ -225,11 +232,24 @@ class StepCounter(TorchDispatchMode):
         self.live += n
         if self.live > self.peak:
             self.peak = self.live
+        if self.snapshot_at is not None:
+            self._what[key] = (str(self._func or "argument"),
+                               tuple(t.shape), t.dtype)
+            if self.at_peak is None and self.live >= self.snapshot_at:
+                groups: Dict[tuple, List[int]] = {}
+                for k, w in self._what.items():
+                    g = groups.setdefault(w, [0, 0])
+                    g[0] += self._storages[k][0]
+                    g[1] += 1
+                self.at_peak = sorted(((n, c) + w for w, (n, c)
+                                       in groups.items()),
+                                      key=lambda e: e[0], reverse=True)
 
     def _free(self, key: int) -> None:
         entry = self._storages.pop(key, None)
         if entry is not None:
             self.live -= entry[0]
+            self._what.pop(key, None)
 
     # the cyclic collector frees what a cycle holds at a moment that
     # depends on the process's allocation history; it is paused while the
@@ -261,6 +281,7 @@ class StepCounter(TorchDispatchMode):
         if op is None:
             op = self._ops[func] = _Op(func)
         out = self._run(func, op, args, kwargs)
+        self._func = func
         if op.lhs is not None:
             lhs = args[op.lhs]
             k = lhs.shape[-1] if lhs.dim() else 1
@@ -340,8 +361,8 @@ def current_group():
     return _GROUP.get("group")
 
 
-def analyze_step(fn, args, *, world_size: int = 1,
-                 rank: int = 0) -> Dict[str, float]:
+def analyze_step(fn, args, *, world_size: int = 1, rank: int = 0,
+                 peak_top: int = 0) -> Dict[str, float]:
     """Run ``fn(*args)`` once on meta tensors and count its work.
 
     ``args`` is a tree (dicts, lists, tuples) whose leaves are
@@ -353,6 +374,12 @@ def analyze_step(fn, args, *, world_size: int = 1,
     (:func:`current_group`); a process that already has a default group
     raises, since the fake one would replace it.  No default group is
     left when it returns.
+
+    ``peak_top > 0`` runs ``fn`` a second time, and adds ``at_peak``:
+    the storages live when that run's live bytes first reach the first
+    run's peak, grouped by the op that wrote them (or "argument"), shape
+    and dtype, as (bytes, count, op, shape, dtype): the ``peak_top``
+    groups of most bytes, largest first.
     """
     from ..parallelism.dist import Group
     with _LOCK:
@@ -373,15 +400,25 @@ def analyze_step(fn, args, *, world_size: int = 1,
                 if isinstance(x, (ShapeDtype, torch.Tensor)):
                     return torch.empty(x.shape, dtype=x.dtype, device=META)
                 return x
-            margs = tree_map(meta, args)
-            counter = _MetaCounter()
-            for _, t in tree_leaves_with_paths(margs):
-                if isinstance(t, torch.Tensor):
-                    counter.track(t)
-            with counter:
-                out = fn(*margs)
-            del out, margs
-            return counter.result()
+            def count(counter):
+                margs = tree_map(meta, args)
+                for _, t in tree_leaves_with_paths(margs):
+                    if isinstance(t, torch.Tensor):
+                        counter.track(t)
+                with counter:
+                    out = fn(*margs)
+                del out, margs
+                return counter
+            got = count(_MetaCounter()).result()
+            if peak_top:
+                again = count(_MetaCounter(snapshot_at=int(
+                    got["peak_bytes"])))
+                if again.at_peak is None:
+                    raise RuntimeError(
+                        f"the second run peaked at {again.peak} bytes, "
+                        f"below the first's {got['peak_bytes']:.0f}")
+                got["at_peak"] = again.at_peak[:peak_top]
+            return got
         finally:
             _GROUP.pop("group", None)
             if world_size > 1 and dist.is_initialized():
@@ -400,15 +437,13 @@ def train_step_inputs(cfg, plan, batch_size: int, seq_len: int,
     plan shards a leaf, and the global batch of ``concrete_batch``."""
     from ..configs import concrete_batch
     from ..models.transformer import model_spec
-    from ..parallelism.shardings import param_pspec, sharded_dim
+    from ..parallelism.shardings import local_shape, param_pspec
     spec_tree = model_spec(cfg)
+    sizes = dict(plan.mesh_axes)
 
     def part(spec):
-        shape = list(spec.shape)
-        sd = sharded_dim(param_pspec(spec, plan)) \
-            if plan.n_devices > 1 else None
-        if sd is not None:
-            shape[sd[0]] //= dict(plan.mesh_axes)[sd[1]]
+        shape = local_shape(spec.shape, param_pspec(spec, plan), sizes) \
+            if plan.n_devices > 1 else spec.shape
         return ShapeDtype(tuple(shape), dtype)
 
     params = tree_map(part, spec_tree)

@@ -5,10 +5,10 @@ Params are dicts of tensors from ``params.init_params``, in the JAX
 package's layouts: attention is (B, S, H, D) and projections are
 (d, heads, head_dim).
 
-Under tensor parallelism (``parallelism.context.current_tp``) each rank
-holds its heads (and kv heads where they divide) of the attention
-projections and its ffn columns of the FFN: the block's input enters
-through ``copy_in`` and its output leaves through one all-reduce
+Under tensor parallelism (``parallelism.context.tp_for``) each rank
+holds its heads (and its kv heads where the rules cut them) of the
+attention projections and its ffn columns of the FFN: the block's input
+enters through ``copy_in`` and its output leaves through one all-reduce
 (``reduce_out``), Megatron's column and row splits.
 """
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallelism import collectives as C
-from ..parallelism.context import current_tp
+from ..parallelism.context import tp_for
 from .config import ModelConfig
 from .params import P
 
@@ -111,16 +111,16 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0,
         else:
             positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
 
-    wk, wv = p["wk"], p["wv"]
-    tp = current_tp() if cache is None else None
+    tp = tp_for("heads") if cache is None else None
     if tp is not None:
         x = C.copy_in(x, tp)
-        wk, wv = _tp_kv(p, cfg, tp)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, wk)
-    v = torch.einsum("bsd,dhk->bshk", x, wv)
+    k, v, kv_of = _project_kv(p, x, cfg, tp, whole=return_cache)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    kv = (k, v)
+    if kv_of is not None:
+        k, v = k[:, :, kv_of], v[:, :, kv_of]
     scale = hd ** -0.5
 
     if cache is None:
@@ -143,7 +143,7 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0,
         if tp is not None:
             y = C.reduce_out(y, tp)
         if return_cache:
-            return y, {"k": k, "v": v}
+            return y, {"k": kv[0], "v": kv[1]}
         return y, None
 
     # ----- decode: write the new k/v at ``pos``, attend over the cache.
@@ -177,20 +177,25 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0,
     return y, {"k": ck, "v": cv}
 
 
-def _tp_kv(p, cfg: ModelConfig, tp):
-    """The kv projections a rank's q heads attend with.  Kv heads that
-    divide over the ranks are sharded like the q heads, and the local
-    ones line up with them.  Kv heads that do not are replicated: each
-    local q head takes its own kv head's columns (a local layout of one
-    kv head per q head), and the weights enter through ``copy_in``,
-    since every rank adds only its q heads' part to their gradient."""
-    if cfg.num_kv_heads % tp.size == 0:
-        return p["wk"], p["wv"]
-    heads = p["wq"].shape[1]
-    kv_of = torch.arange(tp.rank * heads, (tp.rank + 1) * heads,
-                         device=p["wk"].device) // cfg.q_per_kv
-    return (C.copy_in(p["wk"], tp)[:, kv_of],
-            C.copy_in(p["wv"], tp)[:, kv_of])
+def _project_kv(p, x, cfg: ModelConfig, tp, whole: bool):
+    """(k, v, kv_of) of x.  Under ``tp`` the kv heads that the rules cut
+    are the rank's.  Kv heads that they leave whole are replicated: the
+    weights enter through ``copy_in``, since every rank adds only its q
+    heads' part to their gradient, and each local q head takes its own
+    kv head's columns (a local layout of one kv head per q head).  With
+    ``whole`` (a prefill's cache) every kv head is projected, and
+    ``kv_of`` picks each local q head's from them."""
+    wk, wv = p["wk"], p["wv"]
+    kv_of = None
+    if tp is not None and tp_for("kv_heads") is None:
+        heads = p["wq"].shape[1]
+        kv_of = torch.arange(tp.rank * heads, (tp.rank + 1) * heads,
+                             device=wk.device) // cfg.q_per_kv
+        wk, wv = C.copy_in(wk, tp), C.copy_in(wv, tp)
+        if not whole:
+            wk, wv, kv_of = wk[:, kv_of], wv[:, kv_of], None
+    return (torch.einsum("bsd,dhk->bshk", x, wk),
+            torch.einsum("bsd,dhk->bshk", x, wv), kv_of)
 
 
 def attn_cache_spec(cfg: ModelConfig, batch: int, length: int, dtype):
@@ -214,7 +219,7 @@ def ffn_spec(cfg: ModelConfig):
 
 
 def ffn(p, x):
-    tp = current_tp()
+    tp = tp_for("ffn")
     if tp is not None:
         x = C.copy_in(x, tp)
     g = F.silu(torch.einsum("bsd,df->bsf", x, p["wi_gate"]))

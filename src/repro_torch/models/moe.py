@@ -16,7 +16,8 @@ The combine adds each token's kept contributions in a fixed order
 (expert id ascending, the order in which the JAX package's scatter-add
 visits them) with no atomics, so a CUDA run is bit-for-bit repeatable.
 
-Under tensor parallelism the experts are sharded (expert parallelism):
+Where the rules cut the experts over the tensor-parallel axis (expert
+parallelism):
 every rank routes the whole batch, the ``shard`` sites cut the
 dispatched slabs and their gate weights to the rank's experts, each
 rank combines its experts' share, and one all-reduce sums the shares.
@@ -30,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallelism import collectives as C
-from ..parallelism.context import current_tp, shard
+from ..parallelism.context import shard, tp_for
 from .config import ModelConfig
 from .layers import rmsnorm_spec
 from .params import P
@@ -145,7 +146,7 @@ def moe_ffn(p, x, cfg: ModelConfig):
     y = shard(y, "batch", "experts", None, None)
     w = shard(routes.w_of_slot, "batch", "experts", None)
     y = y * w[..., None].to(y.dtype)
-    tp = current_tp()
+    tp = tp_for("experts")
     if tp is None:
         return combine(y, routes), routes.aux.mean()
     out = combine(y, routes, first_expert=tp.rank * y.shape[1])

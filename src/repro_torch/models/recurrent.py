@@ -8,14 +8,16 @@ state; ``<block>_state_spec`` gives that state as meta tensors.  The
 layouts are the JAX package's: activations (B, S, ...), heads before
 head_dim, recurrent matrices R[h, out, in].
 
-Under tensor parallelism (``parallelism.context.current_tp``) each rank
+Under tensor parallelism (``parallelism.context.tp_for``) each rank
 holds the part of every weight that the plan's rules give it, and the
-full-sequence applies run on those parts: the RG-LRU on its rnn
-channels, the mLSTM on its up-projection channels and heads, the sLSTM
-on its heads (the recurrences split by channel or by head).  The block's
-input enters through ``copy_in``; products over a split input dim are
-summed by a reduce-scatter onto the rank's channels or heads, and the
-block's output by one all-reduce.
+full-sequence applies (train and prefill) run on those parts: the
+RG-LRU on its rnn channels, the mLSTM on its up-projection channels
+(and its heads where the rules cut them), the sLSTM on its heads (the
+recurrences split by channel or by head).  The block's input enters
+through ``copy_in``; products over a split input dim are summed by a
+reduce-scatter onto the rank's channels or heads (an all-reduce where
+the heads stay whole), and the block's output by one all-reduce.  A
+prefill returns the state of the rank's channels or heads.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallelism import collectives as C
-from ..parallelism.context import current_tp
+from ..parallelism.context import tp_for
 from .blockwise import mlstm_chunked
 from .config import ModelConfig
 from .layers import rmsnorm_spec
@@ -125,7 +127,7 @@ def rglru_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     ``rglru_scan_ref``; with ``return_state`` the decode state is h's
     last step (float32) and the conv tail.  state=dict: one decode step,
     x is (B, 1, d), h carried in float32."""
-    tp = current_tp() if state is None and not return_state else None
+    tp = tp_for("rnn") if state is None else None
     if tp is not None:
         x = C.copy_in(x, tp)
     gelu_branch = F.gelu(x @ p["w_gelu"], approximate="tanh")
@@ -135,7 +137,7 @@ def rglru_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
         h = (scan_fn or rglru_scan_ref)(a, b)
         y = (h * gelu_branch) @ p["w_out"]
         if tp is not None:
-            return C.reduce_out(y, tp), None
+            y = C.reduce_out(y, tp)
         if return_state:
             return y, {"h": h[:, -1].float(), "conv": _conv_tail(p, u)}
         return y, None
@@ -217,30 +219,50 @@ def mlstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     nh = cfg.num_heads
     up = p["w_up"].shape[1]
     dh = up // nh
-    tp = current_tp() if state is None and not return_state else None
+    tp = tp_for("ffn") if state is None else None
     if tp is not None:
-        return _mlstm_block_tp(p, x, parallel_fn, tp)
+        x = C.copy_in(x, tp)
     xin = x @ p["w_up"]
     z = x @ p["w_gate"]
     if state is None:
+        # under tp, on a rank's part of the up-projection channels (w_up,
+        # w_gate, conv and the rows of wq/wk/wv/wi/wf, w_down).  Where
+        # the rules cut the heads, the reduce-scatter of q, k, v and the
+        # gate pre-activations gives the rank its heads, whose channels
+        # are the rank's channels, so its h meets its own z.  Where they
+        # do not, an all-reduce gives every rank every head, and each
+        # takes its channels of h.
+        cut_heads = tp is not None and tp_for("heads") is not None
+        if tp is None:
+            heads = lambda t: t
+        elif cut_heads:
+            heads = lambda t: C.reduce_split(t, 2, tp)
+        else:
+            heads = lambda t: C.reduce_out(t, tp)
         c = F.silu(conv1d(p["conv"], xin))
-        q = torch.einsum("bsu,uhd->bshd", c, p["wq"])
-        k = torch.einsum("bsu,uhd->bshd", c, p["wk"])
-        v = torch.einsum("bsu,uhd->bshd", xin, p["wv"])
-        i_pre = torch.einsum("bsu,uh->bsh", c, p["wi"]) + p["bi"]
-        f_pre = torch.einsum("bsu,uh->bsh", c, p["wf"]) + p["bf"]
+        q = heads(torch.einsum("bsu,uhd->bshd", c, p["wq"]))
+        k = heads(torch.einsum("bsu,uhd->bshd", c, p["wk"]))
+        v = heads(torch.einsum("bsu,uhd->bshd", xin, p["wv"]))
+        i_pre = heads(torch.einsum("bsu,uh->bsh", c, p["wi"])) + p["bi"]
+        f_pre = heads(torch.einsum("bsu,uh->bsh", c, p["wf"])) + p["bf"]
+        new_state = None
         if return_state:
-            h, (C, n, m) = mlstm_chunked(q, k, v, i_pre, f_pre,
-                                         return_final=True)
-            out = h.reshape(b, s, up) * F.silu(z)
-            return out @ p["w_down"], {"C": C, "n": n, "m": m,
-                                       "conv": _conv_tail(p, xin)}
-        if parallel_fn is None:
-            parallel_fn = (mlstm_chunked if s > _MLSTM_QUADRATIC_MAX_S
-                           else mlstm_parallel_ref)
-        h = parallel_fn(q, k, v, i_pre, f_pre)
-        out = h.reshape(b, s, up) * F.silu(z)
-        return out @ p["w_down"], None
+            h, (cmat, n, m) = mlstm_chunked(q, k, v, i_pre, f_pre,
+                                            return_final=True)
+            new_state = {"C": cmat, "n": n, "m": m,
+                         "conv": _conv_tail(p, xin)}
+        else:
+            if parallel_fn is None:
+                parallel_fn = (mlstm_chunked if s > _MLSTM_QUADRATIC_MAX_S
+                               else mlstm_parallel_ref)
+            h = parallel_fn(q, k, v, i_pre, f_pre)
+        h = h.reshape(b, s, -1)
+        if tp is not None and not cut_heads:
+            h = C.split(h, 2, tp)
+        out = (h * F.silu(z)) @ p["w_down"]
+        if tp is not None:
+            out = C.reduce_out(out, tp)
+        return out, new_state
     # ---- decode step
     c_t, conv_state = conv1d_step(p["conv"], xin[:, 0], state["conv"])
     c_t = F.silu(c_t)
@@ -254,40 +276,15 @@ def mlstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     fg = torch.exp(lf + state["m"] - m_new)[..., None]
     ig = torch.exp(i_pre - m_new)[..., None]
     k32, q32 = k.float(), q.float()
-    C = fg[..., None] * state["C"] + ig[..., None] * (
+    cmat = fg[..., None] * state["C"] + ig[..., None] * (
         k32[..., :, None] * v.float()[..., None, :])
     n = fg * state["n"] + ig * k32
-    num = torch.einsum("bhkv,bhk->bhv", C, q32)
+    num = torch.einsum("bhkv,bhk->bhv", cmat, q32)
     den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, q32)),
                         torch.exp(-m_new))
     h = (num / den[..., None]).reshape(b, up).to(x.dtype)
     out = (h * F.silu(z[:, 0])) @ p["w_down"]
-    return out[:, None], {"C": C, "n": n, "m": m_new, "conv": conv_state}
-
-
-def _mlstm_block_tp(p, x, parallel_fn, tp):
-    """The full-sequence mLSTM on a rank's part: its up-projection
-    channels (w_up, w_gate, conv and the rows of wq/wk/wv/wi/wf, w_down)
-    and, after the reduce-scatter of q, k, v and the gate
-    pre-activations, its heads.  A head's channels are the rank's
-    channels, so its h meets its own z."""
-    b, s, _ = x.shape
-    x = C.copy_in(x, tp)
-    xin = x @ p["w_up"]
-    z = x @ p["w_gate"]
-    c = F.silu(conv1d(p["conv"], xin))
-    heads = lambda t: C.reduce_split(t, 2, tp)
-    q = heads(torch.einsum("bsu,uhd->bshd", c, p["wq"]))
-    k = heads(torch.einsum("bsu,uhd->bshd", c, p["wk"]))
-    v = heads(torch.einsum("bsu,uhd->bshd", xin, p["wv"]))
-    i_pre = heads(torch.einsum("bsu,uh->bsh", c, p["wi"])) + p["bi"]
-    f_pre = heads(torch.einsum("bsu,uh->bsh", c, p["wf"])) + p["bf"]
-    if parallel_fn is None:
-        parallel_fn = (mlstm_chunked if s > _MLSTM_QUADRATIC_MAX_S
-                       else mlstm_parallel_ref)
-    h = parallel_fn(q, k, v, i_pre, f_pre)
-    out = h.reshape(b, s, -1) * F.silu(z)
-    return C.reduce_out(out @ p["w_down"], tp), None
+    return out[:, None], {"C": cmat, "n": n, "m": m_new, "conv": conv_state}
 
 
 def mlstm_state_spec(cfg: ModelConfig, batch: int, dtype):
@@ -345,7 +342,7 @@ def slstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     dtype, as the JAX package's does.  state=dict: one decode step, x is
     (B, 1, d)."""
     b, s, d = x.shape
-    tp = current_tp() if state is None and not return_state else None
+    tp = tp_for("heads") if state is None else None
     if tp is not None:
         x = C.copy_in(x, tp)
     nh, dh = p["wz"].shape[1:]      # a rank's heads under ``tp``
@@ -375,7 +372,7 @@ def slstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
             h = torch.stack(hs, dim=1)
         if return_state:
             c, n, m, h_last = carry
-            return h.reshape(b, s, d) @ p["w_out"], \
+            return _slstm_out(p, h, tp), \
                 {"c": c, "n": n, "m": m, "h": h_last}
         return _slstm_out(p, h, tp), None
     carry = (state["c"], state["n"], state["m"], state["h"])

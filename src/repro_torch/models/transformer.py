@@ -38,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..kernels.ops import kernel_opts
 from ..parallelism import collectives as C
-from ..parallelism.context import bound_use, current_tp, shard, use
+from ..parallelism.context import bound_rules, bound_use, shard, tp_for, use
 from .config import ATTN, MLSTM, RECURRENT, RGLRU, SLSTM, SWA, ModelConfig
 from .layers import (attention, attention_spec, attn_cache_spec, ffn,
                      ffn_spec, rmsnorm, rmsnorm_spec)
@@ -205,7 +205,7 @@ def _run_groups(params, cfg: ModelConfig, x, *, caches=None, positions=None,
     each block in an unrolled one."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_groups = []
-    take = bound_use()
+    take, rules = bound_use(), bound_rules()
     for gi, (mode, pattern, n) in enumerate(cfg.layer_plan()):
         gparams = params["groups"][gi]
         gcaches = caches[gi] if caches is not None else None
@@ -218,18 +218,19 @@ def _run_groups(params, cfg: ModelConfig, x, *, caches=None, positions=None,
             rep = None if mode == "unroll" else r
             for unit in units:
                 # bound now: a remat recompute calls run after the loop
-                # has moved on to a later group
+                # has moved on to a later group, and in the backward
                 def run(x_, unit=unit, at=at, rep=rep, gparams=gparams,
                         gcaches=gcaches, take=take):
                     ncs, aux_ = {}, 0.0
-                    for key, kind in unit:
-                        c = (tree_map(at, gcaches[key])
-                             if gcaches is not None else None)
-                        x_, ncs[key], a = _block_apply(
-                            take(gparams[key], rep), x_, kind=kind,
-                            cfg=cfg, cache=c, positions=positions, pos=pos,
-                            opts=opts, prefill=prefill)
-                        aux_ = aux_ + a
+                    with rules():
+                        for key, kind in unit:
+                            c = (tree_map(at, gcaches[key])
+                                 if gcaches is not None else None)
+                            x_, ncs[key], a = _block_apply(
+                                take(gparams[key], rep), x_, kind=kind,
+                                cfg=cfg, cache=c, positions=positions,
+                                pos=pos, opts=opts, prefill=prefill)
+                            aux_ = aux_ + a
                     return x_, ncs, aux_
                 if remat:
                     x, ncs, a = checkpoint(run, x, use_reentrant=False)
@@ -281,7 +282,7 @@ def _embed_tokens(table, tokens):
     """Rows of ``table`` for ``tokens``; under tensor parallelism the
     rank holds a slice of the vocab, looks up the tokens that fall in
     it, and the ranks' rows are summed."""
-    tp = current_tp()
+    tp = tp_for("vocab")
     if tp is None:
         return table[tokens.long()]
     n = table.shape[0]
@@ -292,7 +293,7 @@ def _embed_tokens(table, tokens):
 
 
 def unembed(params, cfg: ModelConfig, x):
-    tp = current_tp()
+    tp = tp_for("vocab")
     if tp is not None:
         x = C.copy_in(x, tp)
     if cfg.tie_embeddings:
@@ -321,7 +322,7 @@ def prefill_forward(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     x = embed_inputs(params, cfg, batch)
     s = x.shape[1]
     x, new_caches, _ = _run_groups(params, cfg, x, opts=opts, prefill=True)
-    x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    x = rmsnorm(use(params["final_norm"]), x[:, -1:], cfg.norm_eps)
     logits = unembed(params, cfg, x)
     return logits, {"layers": new_caches,
                     "pos": torch.tensor(s, dtype=torch.int32,

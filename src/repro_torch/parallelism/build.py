@@ -10,7 +10,7 @@ ranks it runs the plan's technique as one rank of the job:
 
 - ``ddp``: replicated parameters; each rank takes its contiguous slice
   of the global batch, and the gradients are averaged across ranks in
-  one flat all-reduce a dtype.
+  place, in buckets of ``collectives.BUCKET_BYTES``.
 - ``fsdp``, and ``remat-offload`` at n > 1: parameters and AdamW's mu
   and nu rest sharded on ``param_pspec``'s axis (a leaf with no
   divisible axis is replicated).  The step makes each unit's parameters
@@ -23,17 +23,27 @@ ranks it runs the plan's technique as one rank of the job:
   ``axis_rules`` (``models.layers``, ``moe``, ``recurrent``; for an MoE
   config this is expert parallelism).
 - ``gpipe``: :mod:`~repro_torch.parallelism.pipeline`.
+- a rules plan (``param_policy="rules"`` on two or three mesh axes, the
+  dry run's production layout): each leaf is cut on every dim its rules
+  place, over "data" (FSDP) and "model" (tensor parallelism) at once.
+  The step gathers the "data" cuts just in time as fsdp does, and the
+  model computes on its "model" parts as under ``tp``; the batch is cut
+  over its axis or tuple of axes (``("pod", "data")``), and a gradient
+  is averaged over the batch axes that its gather did not already sum.
+  ``running(params)`` is the same context for a prefill.
 
 The gradient clip needs the norm of the whole gradient: each rank's sum
-of squares over its sharded leaves is all-reduced, and a replicated leaf
-is counted once.  The metrics are global values on every rank.  In a
-group of one rank every collective is a copy, so a step computes what
-the no-group step computes, bit for bit.  A checkpoint's full tree is
+of squares over its sharded leaves is all-reduced over the axes they are
+cut on, and a replicated leaf is counted once.  The metrics are global
+values on every rank.  An axis of one rank cuts nothing, and in a group
+of one rank every collective is a copy, so a step computes what the
+no-group step computes, bit for bit.  A checkpoint's full tree is
 gathered onto rank 0's host one leaf at a time (``full_state``).
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -52,9 +62,14 @@ from .base import Plan
 from .context import axis_rules, param_gather
 from .fsdp import ParamGather
 from .pipeline import pipeline_grads
-from .shardings import cut_tree, param_pspec, param_shardings, sharded_dim
+from .shardings import (axis_names, cut_tree, cuts, param_pspec,
+                        param_shardings)
 
 SINGLE_DEVICE_TECHNIQUES = ("ddp", "remat-offload")
+# the logical axes whose cut over "model" the model computes on (tensor
+# parallelism: heads, kv heads, ffn columns, experts, vocab rows, rnn
+# channels)
+TP_LOGICAL_AXES = ("heads", "kv_heads", "ffn", "experts", "vocab", "rnn")
 
 
 def logical_sizes(cfg: ModelConfig) -> Dict[str, int]:
@@ -82,8 +97,9 @@ class BuiltJob:
     on one device or as one rank of the job's process group."""
 
     def __init__(self, cfg: ModelConfig, plan: Plan, opt_cfg: AdamWConfig,
-                 device="cuda", group=None):
+                 device="cuda", group=None, opts: Optional[dict] = None):
         self.cfg, self.plan, self.opt_cfg = cfg, plan, opt_cfg
+        self.opts = opts
         self.group = group
         self.spec_tree = model_spec(cfg)
         self._step = None
@@ -102,32 +118,80 @@ class BuiltJob:
         if group.size != plan.n_devices:
             raise ValueError(f"{plan.technique} x{plan.n_devices} in a "
                              f"group of {group.size} ranks")
-        if len(plan.mesh_axes) != 1:
-            raise NotImplementedError(
-                f"mesh {plan.mesh_axes}: the port runs one mesh axis")
-        self.device = group.device
-        self.mesh = group.mesh(plan.mesh_axes)
-        self.axis = self.mesh.axis(plan.mesh_axis_names[0])
-        self.sizes = logical_sizes(cfg)
-        self.p_sh = param_shardings(self.spec_tree, plan)
-        self._placement = {}
-        self._dims: List[Optional[int]] = []
-        for path, spec in tree_leaves_with_paths(self.spec_tree):
-            ps = param_pspec(spec, plan)
-            sd = sharded_dim(ps)
-            if sd is not None and spec.shape[sd[0]] % self.axis.size:
-                raise ValueError(
-                    f"{'/'.join(path)} {spec.shape}: dim {sd[0]} does not "
-                    f"split over {self.axis.size} ranks")
-            self._placement[path] = sd
-            self._dims.append(None if sd is None else sd[0])
-        self._sharded = [i for i, d in enumerate(self._dims) if d is not None]
-        self._whole = [i for i, d in enumerate(self._dims) if d is None]
         if plan.technique == "gpipe" and (
                 len(cfg.layer_plan()) != 1
                 or cfg.layer_plan()[0][0] != "scan"):
             raise ValueError(f"gpipe needs one scanned layer group "
                              f"({cfg.name}: {cfg.layer_plan()})")
+        self.device = group.device
+        self.sizes = logical_sizes(cfg)
+        self._layout(plan)
+        self.mesh = group.mesh(plan.mesh_axes, flat=self._flat)
+        self.axis = self.mesh.axis(self.names[0]) \
+            if len(self.names) == 1 else None
+        self.world = self.mesh.axis(self.names)
+
+    def _layout(self, plan: Plan) -> None:
+        """Each leaf's placement; the dim that the step gathers (a cut
+        over any axis but the one the model computes on: "model" under
+        the rules policy, "stage" under gpipe's); the axes its gradient
+        is all-reduced over and what it is divided by; the axes its
+        squares are summed over for the norm."""
+        self.names = plan.mesh_axis_names
+        mesh_sizes = dict(plan.mesh_axes)
+        size = lambda axes: math.prod(mesh_sizes[a] for a in axes)
+        ordered = lambda axes: tuple(a for a in self.names if a in axes)
+        local = {"rules": ("model",), "stage": ("stage",)}.get(
+            plan.param_policy, ())
+        self.rules = dict(plan.rules)
+        batch = self.rules.get("batch")
+        self.batch_axes = ordered(axis_names(batch)) if batch else ()
+        if "model" in self.batch_axes and any(
+                self.rules.get(a) == "model" for a in TP_LOGICAL_AXES) \
+                and mesh_sizes.get("model", 1) > 1:
+            raise NotImplementedError(
+                f"rules {self.rules}: the batch and tensor parallelism "
+                "on one axis")
+        self.p_sh = param_shardings(self.spec_tree, plan)
+        self._placement: Dict[tuple, tuple] = {}
+        self._dims: List[Optional[int]] = []     # the gathered dim
+        self._cut_axes: List[tuple] = []         # every axis a leaf is cut on
+        self._reduce_axes: List[tuple] = []      # its gradient's all-reduce
+        self._divisor: List[int] = []
+        gather_axes = set()
+        flat = {self.names, self.batch_axes}
+        for path, spec in tree_leaves_with_paths(self.spec_tree):
+            ps = param_pspec(spec, plan)
+            cs = cuts(ps)
+            for d, m in cs:
+                if spec.shape[d] % size(axis_names(m)):
+                    raise ValueError(
+                        f"{'/'.join(path)} {spec.shape}: dim {d} does not "
+                        f"split over {m}")
+                flat.add(axis_names(m))
+            gathered = [(d, m) for d, m in cs if m not in local]
+            if len(gathered) > 1:
+                raise NotImplementedError(
+                    f"{'/'.join(path)} {ps}: the port gathers one dim")
+            g_axes = axis_names(gathered[0][1]) if gathered else ()
+            if gathered:
+                gather_axes.add(gathered[0][1])
+            cut_axes = ordered({a for _, m in cs for a in axis_names(m)})
+            reduce_axes = tuple(a for a in self.batch_axes
+                                if a not in g_axes)
+            self._placement[path] = ps
+            self._dims.append(gathered[0][0] if gathered else None)
+            self._cut_axes.append(cut_axes)
+            self._reduce_axes.append(reduce_axes)
+            self._divisor.append(size(self.batch_axes) * size(
+                [a for a in g_axes if a not in self.batch_axes]))
+            flat.update((cut_axes, reduce_axes))
+        if len(gather_axes) > 1:
+            raise NotImplementedError(
+                f"cuts gathered over {sorted(map(str, gather_axes))}: the "
+                "port gathers over one axis")
+        self._gather_axis = gather_axes.pop() if gather_axes else None
+        self._flat = sorted(a for a in flat if len(a) > 1)
 
     # ------------------------------------------------------------ step
     @property
@@ -137,6 +201,7 @@ class BuiltJob:
         if self._step is None:
             if self.group is None:
                 self._step = make_train_step(self.cfg, self.opt_cfg,
+                                             opts=self.opts,
                                              remat=self.plan.remat)
             elif self.plan.technique == "gpipe":
                 self._step = self._gpipe_step
@@ -145,33 +210,68 @@ class BuiltJob:
         return self._step
 
     def _loss(self, params, batch):
-        return lm_loss(params, self.cfg, batch, remat=self.plan.remat)
+        return lm_loss(params, self.cfg, batch, opts=self.opts,
+                       remat=self.plan.remat)
+
+    def _gathering(self, leaves, saved=False):
+        """The just-in-time gather of the dims that the plan cuts over its
+        gather axis (none: a null context); with ``saved``, autograd
+        keeps only the rank's part of each whole weight it saves."""
+        if self._gather_axis is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        gather = ParamGather(self.mesh.axis(self._gather_axis), leaves,
+                             self._dims)
+        stack.enter_context(param_gather(gather))
+        if saved:
+            stack.enter_context(gather.saved_as_parts())
+        return stack
+
+    @contextlib.contextmanager
+    def running(self, params):
+        """This rank's context for the model on its part of ``params``:
+        the plan's axis rules and the just-in-time gathers.  A prefill of
+        a rules plan is ``prefill_forward`` inside it."""
+        with axis_rules(self.rules, self.mesh, self.sizes), \
+                self._gathering(_leaves(params)):
+            yield
 
     def _spmd_step(self, params, opt_state, batch):
-        plan, axis, n = self.plan, self.axis, self.axis.size
-        loss = self._loss
-        if plan.param_policy == "fsdp":
-            def loss(leaves, batch):
-                gather = ParamGather(axis, _leaves(leaves), self._dims)
-                saved = contextlib.nullcontext() if plan.remat \
-                    else gather.saved_as_parts()
-                with param_gather(gather), saved:
-                    return self._loss(leaves, batch)
-        with axis_rules(plan.rules, self.mesh, self.sizes):
+        def loss(leaves, batch):
+            with self._gathering(_leaves(leaves), saved=not self.plan.remat):
+                return self._loss(leaves, batch)
+
+        with axis_rules(self.rules, self.mesh, self.sizes):
             grads, metrics = _grads(loss, params, batch)
-        g = _leaves(grads)
-        if plan.param_policy in ("replicate", "fsdp"):
-            # data parallel: the mean of the ranks' gradients and metrics
-            # (an fsdp leaf's gradient is already its part of the sum)
-            out = list(g)
-            whole = self._whole if plan.param_policy == "fsdp" \
-                else range(len(g))
-            C.all_reduce_flat(g, whole, axis, out)
-            g = [t.div(n) for t in out]
+        g = self._reduce(_leaves(grads))
+        if self.batch_axes:
+            # the mean of the ranks' metrics over the batch
+            axis = self.mesh.axis(self.batch_axes)
             both = C.all_reduce(torch.stack([metrics["loss"],
-                                             metrics["aux_loss"]]), axis) / n
+                                             metrics["aux_loss"]]),
+                                axis) / axis.size
             metrics = {"loss": both[0], "aux_loss": both[1]}
         return self._update(params, opt_state, g, metrics)
+
+    def _reduce(self, g: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The mean over the batch of the ranks' gradients, in place (a
+        gathered leaf's gradient is already its part of the sum over the
+        gather axis): one bucketed all-reduce for each set of axes."""
+        seen = set()
+        for i, t in enumerate(g):
+            if id(t) in seen:          # one tensor for two leaves
+                g[i] = t.clone()
+            seen.add(id(g[i]))
+        groups: Dict[tuple, List[torch.Tensor]] = {}
+        for t, axes in zip(g, self._reduce_axes):
+            if axes:
+                groups.setdefault(axes, []).append(t)
+        for axes, ts in groups.items():
+            C.all_reduce_buckets(ts, self.mesh.axis(axes))
+        for t, n in zip(g, self._divisor):
+            if n != 1:
+                t.div_(n)
+        return g
 
     def _gpipe_step(self, params, opt_state, batch):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -180,10 +280,10 @@ class BuiltJob:
         g = [t.grad if t.grad is not None else torch.zeros_like(t)
              for t in _leaves(leaves)]
         # a replicated leaf's gradient is the sum of its stages' parts
-        out = list(g)
-        C.all_reduce_flat(g, self._whole, self.axis, out)
+        C.all_reduce_buckets([t for t, axes in zip(g, self._cut_axes)
+                              if not axes], self.axis)
         both = C.all_reduce(torch.stack([ce, aux]), self.axis)
-        return self._update(params, opt_state, out,
+        return self._update(params, opt_state, g,
                             {"loss": both[0], "aux_loss": both[1]})
 
     def _update(self, params, opt_state, g, metrics):
@@ -198,17 +298,20 @@ class BuiltJob:
         return params, opt_state, metrics
 
     def _norm(self, g):
-        """Norm of the whole gradient: the sharded leaves' squares summed
-        over the ranks, each replicated leaf once; flatten order."""
-        sharded, whole = 0, 0
-        for t, d in zip(g, self._dims):
+        """Norm of the whole gradient: each leaf's squares summed over
+        the axes it is cut on (one all-reduce for each set of axes), each
+        replicated leaf once; flatten order."""
+        parts: Dict[tuple, torch.Tensor] = {}
+        whole = 0
+        for t, axes in zip(g, self._cut_axes):
             sq = torch.sum(torch.square(t.float()))
-            if d is None:
-                whole = whole + sq
+            if axes:
+                parts[axes] = parts.get(axes, 0) + sq
             else:
-                sharded = sharded + sq
-        if self._sharded:
-            sharded = C.all_reduce(sharded, self.axis)
+                whole = whole + sq
+        sharded = 0
+        for axes, sq in parts.items():
+            sharded = sharded + C.all_reduce(sq, self.mesh.axis(axes))
         return torch.sqrt(sharded + whole)
 
     # ----------------------------------------------------------- state
@@ -228,12 +331,12 @@ class BuiltJob:
 
     def place_batch(self, batch):
         """The batch on this rank's device: its contiguous slice of the
-        rows under a plan that shards the batch, else all of it."""
+        rows under a plan that shards the batch (over one axis or a tuple
+        of axes), else all of it."""
         batch = {k: v.to(self.device) for k, v in batch.items()}
-        ax = self.plan.rules.get("batch") if self.group is not None else None
-        if ax is None:
+        if self.group is None or not self.batch_axes:
             return batch
-        axis = self.mesh.axis(ax)
+        axis = self.mesh.axis(self.batch_axes)
         return {k: C.local_slice(v, 0, axis) if v.ndim else v
                 for k, v in batch.items()}
 
@@ -242,29 +345,36 @@ class BuiltJob:
         """Whether this rank writes the job's checkpoints (rank 0)."""
         return self.group is None or self.group.rank == 0
 
+    def _in_root(self, axes) -> bool:
+        """Whether this rank shares global rank 0's group of ``axes``."""
+        return all(c == 0 for a, c in zip(self.names, self.mesh.coords)
+                   if a not in axes)
+
     def full_state(self, params, opt):
         """{"params", "opt"} with every leaf whole, the tree the
         reference's checkpoint holds.  Without a group: the trees as
         they are.  In a group, every rank takes part and rank 0 gets the
-        tree on the host, gathered one leaf at a time (a device holds
-        one leaf whole at most); the other ranks get None."""
+        tree on the host, gathered one leaf at a time over the axes the
+        leaf is cut on (a device holds one leaf whole at most); the
+        other ranks get None."""
         if self.group is None:
             return {"params": params, "opt": opt}
-        axis = self.axis
-        writer = axis.rank == 0
-        dst = dist.get_global_rank(axis.group, 0)
+        writer = self.is_writer
+        places = list(self._placement.values())
 
         def whole(tree):
             out = []
-            for t, d in zip(_leaves(tree), self._dims):
-                if d is None:
+            for t, ps, axes in zip(_leaves(tree), places, self._cut_axes):
+                if not axes or not self._in_root(axes):
                     out.append(t.cpu() if writer else None)
                     continue
+                axis = self.mesh.axis(axes)
                 t = t.contiguous()
                 parts = [torch.empty_like(t) for _ in range(axis.size)] \
                     if writer else None
-                dist.gather(t, parts, dst=dst, group=axis.group)
-                out.append(torch.cat([p.cpu() for p in parts], dim=d)
+                dist.gather(t, parts, dst=dist.get_global_rank(axis.group, 0),
+                            group=axis.group)
+                out.append(self._assemble([p.cpu() for p in parts], ps, axes)
                            if writer else None)
                 del parts
             return _rebuild(tree, out) if writer else None
@@ -274,20 +384,38 @@ class BuiltJob:
                         "step": opt["step"].cpu()}}
         return tree if writer else None
 
+    def _assemble(self, parts, ps, axes):
+        """The whole tensor of the ranks' ``parts`` (in the row-major
+        order of ``axes``) of a leaf placed by ``ps``."""
+        sizes = [self.mesh.size(a) for a in axes]
+        shape = list(parts[0].shape)
+        for d, m in cuts(ps):
+            shape[d] *= self.mesh.size(m)
+        full = torch.empty(shape, dtype=parts[0].dtype)
+        for idx, part_ in enumerate(parts):
+            coords = dict(zip(axes, np.unravel_index(idx, sizes)))
+            at = [slice(None)] * len(shape)
+            for d, m in cuts(ps):
+                block = int(np.ravel_multi_index(
+                    [coords[a] for a in axis_names(m)],
+                    [self.mesh.size(a) for a in axis_names(m)]))
+                k = part_.shape[d]
+                at[d] = slice(block * k, (block + 1) * k)
+            full[tuple(at)] = part_
+        return full
+
     def cut_array(self, path, arr: np.ndarray) -> np.ndarray:
         """This rank's part of a full checkpoint array at ``path``
         (("params", ...), ("opt", "mu" | "nu", ...) or ("opt", "step"))."""
-        if self.group is None:
+        if self.group is None or path[:2] == ("opt", "step"):
             return arr
         key = path[1:] if path[0] == "params" else path[2:]
-        sd = self._placement.get(tuple(key)) if path[:2] != ("opt", "step") \
-            else None
-        if sd is None:
-            return arr
-        dim = sd[0]
-        k = C.part(arr.shape[dim], self.axis.size)
-        return np.take(arr, np.arange(self.axis.rank * k,
-                                      (self.axis.rank + 1) * k), axis=dim)
+        for d, m in cuts(self._placement.get(tuple(key), ())):
+            axis = self.mesh.axis(m)
+            k = C.part(arr.shape[d], axis.size)
+            arr = np.take(arr, np.arange(axis.rank * k, (axis.rank + 1) * k),
+                          axis=d)
+        return arr
 
     def load(self, path: str, params, opt):
         """(params, opt, start_step) from the checkpoint chain at

@@ -20,8 +20,9 @@ Each rank's part is the contiguous ``1/size`` slice at its index along
 the axis, as the reference's mesh lays out a sharded dim.
 
 The ``*_flat`` forms take a list of tensors and run one collective a
-dtype over all of them (a bucket), where the plain forms run one a
-tensor.
+dtype over all of them, where the plain forms run one a tensor;
+:func:`all_reduce_buckets` sums a list in place, a bounded bucket at a
+time.
 """
 from __future__ import annotations
 
@@ -174,17 +175,54 @@ def _by_dtype(ts, idx):
     return groups.values()
 
 
-def all_reduce_flat(ts: List[torch.Tensor], idx, axis: Axis, out):
-    """Sum ``ts[i]`` for i in ``idx`` over the axis, one all-reduce a
-    dtype; the results land in ``out[i]``."""
-    for group in _by_dtype(ts, idx):
-        flat = torch.cat([ts[i].reshape(-1) for i in group])
+# the largest bucket an all-reduce of many tensors copies them into, as
+# PyTorch DDP's default bucket cap
+BUCKET_BYTES = 25 * 2 ** 20
+
+
+def _dense_flat(t: torch.Tensor):
+    """A 1-D view of ``t``'s elements in storage order where ``t`` covers
+    one span of its storage once (a permutation of a contiguous layout,
+    as autograd returns some gradients), else None."""
+    order = sorted(range(t.dim()), key=lambda i: -t.stride(i))
+    p = t.permute(order)
+    return p.view(-1) if p.is_contiguous() else None
+
+
+def all_reduce_buckets(ts: List[torch.Tensor], axis: Axis) -> None:
+    """Sum every tensor of ``ts`` over the axis in place, in list order.
+    Consecutive tensors of one dtype share a flat bucket of at most
+    :data:`BUCKET_BYTES`, whose sum is copied back into each tensor in
+    its own layout; a tensor of a bucket's size or more is reduced where
+    it lies.  So the reduction holds one bucket beyond the tensors, and
+    a later sum over a tensor runs in the order its layout gives, as
+    without a group."""
+    bucket: List[torch.Tensor] = []
+    size = 0
+
+    def flush():
+        flat = torch.cat([t.reshape(-1) for t in bucket])
         dist.all_reduce(flat, group=axis.group)
         off = 0
-        for i in group:
-            n = ts[i].numel()
-            out[i] = _landing(ts[i], flat[off:off + n].view(ts[i].shape))
-            off += n
+        for t in bucket:
+            t.copy_(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+        bucket.clear()
+
+    for t in ts:
+        n = t.numel() * t.element_size()
+        if bucket and (t.dtype != bucket[0].dtype
+                       or size + n > BUCKET_BYTES):
+            flush()
+            size = 0
+        flat = _dense_flat(t) if n >= BUCKET_BYTES else None
+        if flat is not None:
+            dist.all_reduce(flat, group=axis.group)
+            continue
+        bucket.append(t)
+        size += n
+    if bucket:
+        flush()
 
 
 def all_gather_flat(ts, dims, axis: Axis):

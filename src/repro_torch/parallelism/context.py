@@ -17,19 +17,23 @@ backward all-gather).  A dim mapped to the plan's batch axis was cut by
 holds the rank's part stays as it is; ``axis_rules``' ``sizes`` (each
 logical axis's global size) tell the two apart.
 
-``current_tp`` is the mesh axis named ``"model"`` inside a rules context
-that maps logical axes onto it: the tensor-parallel axis the model's
-blocks split their heads, ffn, experts, vocab and rnn channels over.
+``tp_for(logical)`` is the mesh axis named ``"model"`` inside a rules
+context that maps the logical axis onto it: the tensor-parallel axis a
+block splits its heads, ffn columns, experts, vocab rows or rnn
+channels over.  A tuple of mesh axes (``("pod", "data")``) is one axis
+over their product (``dist.Mesh``).
 
 ``use(tree, r)`` is where the model takes the parameters of one unit
 (the embedding, the final norm, the unembedding, one repeat ``r`` of a
-scanned layer group): the tree itself (its repeat ``r``) outside an
-fsdp step, and the unit made whole just in time inside one
-(``param_gather``, :mod:`~repro_torch.parallelism.fsdp`).
+scanned layer group): the tree itself (its repeat ``r``), or, under
+``param_gather`` (an fsdp step; a rules plan's step or prefill), the
+unit made whole just in time along the dims cut over an axis other than
+``"model"`` (:mod:`~repro_torch.parallelism.fsdp`).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -64,6 +68,15 @@ def axis_rules(rules: dict, mesh, sizes: Optional[Dict[str, int]] = None):
         yield
     finally:
         _state.rules, _state.mesh, _state.sizes = prev
+
+
+def bound_rules():
+    """A context that enters the axis rules in force now: a remat
+    recompute reruns a block in the backward, which autograd runs on a
+    thread of its own for a CUDA device, where this thread's rules are
+    not set."""
+    return functools.partial(axis_rules, current_rules(), current_mesh(),
+                             _current_sizes())
 
 
 def spec_for(axes: Sequence[Optional[str]], rules=None) -> Tuple:
@@ -113,14 +126,18 @@ def bound_use():
         tree_map(lambda t: t[r], tree)
 
 
-def current_tp():
+def tp_for(logical: str):
     """The tensor-parallel mesh axis (an ``Axis``) when the active rules
-    shard anything over it, else None."""
+    shard the logical axis ``logical`` over it and it has more than one
+    rank, else None: the model splits a block's work by heads, ffn
+    columns, experts, vocab rows or rnn channels only where the rules
+    cut its weights so."""
     rules, mesh = current_rules(), current_mesh()
     if rules is None or mesh is None or TP_AXIS not in mesh \
-            or TP_AXIS not in rules.values():
+            or rules.get(logical) != TP_AXIS:
         return None
-    return mesh.axis(TP_AXIS)
+    ax = mesh.axis(TP_AXIS)
+    return ax if ax.size > 1 else None
 
 
 def shard(x, *axes):
@@ -134,8 +151,6 @@ def shard(x, *axes):
     for dim, (a, m) in enumerate(zip(axes, spec_for(axes, rules))):
         if m is None or a not in sizes:
             continue
-        if isinstance(m, tuple):
-            raise NotImplementedError(f"{a!r} over several mesh axes {m}")
         ax = mesh.axis(m)
         if x.shape[dim] == sizes[a]:
             x = C.split(x, dim, ax)

@@ -15,8 +15,9 @@ one process group:
   a port; ``"env://"`` reads ``MASTER_ADDR``/``MASTER_PORT`` as
   ``torchrun`` sets them.
 - :class:`Mesh` lays the group out as ``Plan.mesh_axes`` with a
-  ``DeviceMesh``; each named axis is an :class:`Axis`: its process
-  group, this rank's index on it and its size.
+  ``DeviceMesh``; each named axis, and each tuple of axes made one, is
+  an :class:`Axis`: its process group, this rank's index on it and its
+  size.
 - :func:`spawn` runs a function on n spawned ranks of a fresh group and
   returns rank 0's result, or raises with the failing rank's traceback;
   no rank outlives it.
@@ -79,8 +80,9 @@ class Group:
     backend: str
     store: str
 
-    def mesh(self, mesh_axes: Tuple[Tuple[str, int], ...]) -> "Mesh":
-        return Mesh(self, mesh_axes)
+    def mesh(self, mesh_axes: Tuple[Tuple[str, int], ...],
+             flat: Sequence[Tuple[str, ...]] = ()) -> "Mesh":
+        return Mesh(self, mesh_axes, flat)
 
     def destroy(self) -> None:
         if dist.is_initialized():
@@ -121,9 +123,15 @@ def nccl_version() -> Optional[str]:
 
 class Mesh:
     """``Plan.mesh_axes`` over a group's ranks, row-major, as the JAX
-    package reshapes its device pool."""
+    package reshapes its device pool.  Besides each named axis, each
+    tuple of axes in ``flat`` (in mesh order, such as ``("pod",
+    "data")``) is one axis over their product: this rank's slice of
+    them, indexed row-major, as a ``PartitionSpec`` entry of that tuple
+    lays a dim out.  Only this rank's group of a flattened axis is made
+    (a group-local ``new_group``)."""
 
-    def __init__(self, group: Group, mesh_axes: Tuple[Tuple[str, int], ...]):
+    def __init__(self, group: Group, mesh_axes: Tuple[Tuple[str, int], ...],
+                 flat: Sequence[Tuple[str, ...]] = ()):
         from torch.distributed.device_mesh import DeviceMesh
         names = tuple(a for a, _ in mesh_axes)
         shape = tuple(n for _, n in mesh_axes)
@@ -132,16 +140,42 @@ class Mesh:
                              f"{math.prod(shape)} ranks; the group has "
                              f"{group.size}")
         self.group = group
+        self.names, self.shape = names, shape
         self.device_mesh = DeviceMesh(
             group.device.type, torch.arange(group.size).reshape(shape),
             mesh_dim_names=names)
-        self.axes: Dict[str, Axis] = {
+        self.axes: Dict[object, Axis] = {
             name: Axis(name, self.device_mesh.get_group(name),
                        self.device_mesh.get_local_rank(name), n)
             for name, n in mesh_axes}
+        self.coords = tuple(self.axes[a].rank for a in names)
+        for axes in flat:
+            self._flatten(tuple(axes))
 
-    def axis(self, name: str) -> Axis:
+    def _flatten(self, axes: Tuple[str, ...]) -> None:
+        if len(axes) == 1 or axes in self.axes:
+            return
+        pos = [self.names.index(a) for a in axes]
+        if pos != sorted(pos):
+            raise ValueError(f"axes {axes} are not in mesh order "
+                             f"{self.names}")
+        grid = torch.arange(self.group.size).reshape(self.shape)
+        index = tuple(slice(None) if i in pos else c
+                      for i, c in enumerate(self.coords))
+        ranks = grid[index].reshape(-1).tolist()
+        pg = dist.new_group(ranks, use_local_synchronization=True)
+        self.axes[axes] = Axis("+".join(axes), pg,
+                               ranks.index(self.group.rank), len(ranks))
+
+    def axis(self, name) -> Axis:
+        """A named axis, or a tuple of names made one axis in ``flat``."""
+        if isinstance(name, tuple) and len(name) == 1:
+            name = name[0]
         return self.axes[name]
+
+    def size(self, name) -> int:
+        names = name if isinstance(name, tuple) else (name,)
+        return math.prod(self.shape[self.names.index(a)] for a in names)
 
     def __contains__(self, name: str) -> bool:
         return name in self.axes

@@ -3,7 +3,8 @@ counterpart of the all-gathers that XLA places in the JAX package's
 sharded step.
 
 A rank holds its parts of the parameters (``shardings.param_pspec``'s
-"fsdp" policy).  The model takes the parameters of one unit at a time
+"fsdp" policy, or a rules plan's cuts over "data", whose cuts over
+"model" the model computes on as they are).  The model takes the parameters of one unit at a time
 through :func:`~repro_torch.parallelism.context.use`: the embedding, the
 final norm, the unembedding, and each block of a layer group (one
 repeat of a scanned group).  :class:`ParamGather` makes that unit's

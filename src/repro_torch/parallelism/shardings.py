@@ -1,19 +1,21 @@
 """Per-dim placements for parameters and optimizer state from a Plan,
 the JAX package's ``parallelism/shardings.py``, and the cut of one
 rank's part out of a full tensor (``BuiltJob.full_state`` gathers the
-parts back, in one flat all-gather).
+parts back, a leaf at a time).
 
-A placement is a tuple with one entry per dim: the mesh axis that
-shards the dim, or None.  Each rank holds the contiguous ``1/size``
-slice of a sharded dim at its index along that axis
-(:mod:`~repro_torch.parallelism.collectives`), as the reference's mesh
-lays it out; a leaf whose placement shards no dim is replicated.
+A placement is a tuple with one entry per dim: the mesh axis (or tuple
+of axes, one axis over their product) that shards the dim, or None;
+several dims may be cut, each over its own axes.  Each rank holds the
+contiguous ``1/size`` slice of a sharded dim at its index along that
+axis (:mod:`~repro_torch.parallelism.collectives`), as the reference's
+mesh lays it out; a leaf whose placement shards no dim is replicated.
 Placements are tuples, so a tree of them is only ever walked beside a
 tree of tensors or specs (``tree_map(fn, tensors, placements)``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -24,7 +26,9 @@ from .context import spec_for
 
 
 def param_pspec(spec: P, plan: Plan) -> Tuple:
-    """Placement of one parameter under the plan's policy."""
+    """Placement of one parameter under the plan's policy.  A dim placed
+    on an axis (or tuple of axes) of one rank is not cut: its entry is
+    None."""
     none = (None,) * len(spec.shape)
     if plan.param_policy == "replicate":
         return none
@@ -33,14 +37,18 @@ def param_pspec(spec: P, plan: Plan) -> Tuple:
         idx = largest_divisible_axis(spec.shape, n)
         if idx is None:
             return none
-        return tuple("data" if i == idx else None
-                     for i in range(len(spec.shape)))
-    if plan.param_policy == "rules":
-        return spec_for(spec.axes, plan.rules)
-    if plan.param_policy == "stage":
+        ps = tuple("data" if i == idx else None
+                   for i in range(len(spec.shape)))
+    elif plan.param_policy == "rules":
+        ps = spec_for(spec.axes, plan.rules)
+    elif plan.param_policy == "stage":
         # stacked-layer ("layers") axis sharded over the stage axis
-        return tuple("stage" if a == "layers" else None for a in spec.axes)
-    raise ValueError(plan.param_policy)
+        ps = tuple("stage" if a == "layers" else None for a in spec.axes)
+    else:
+        raise ValueError(plan.param_policy)
+    sizes = dict(plan.mesh_axes)
+    return tuple(m if m is not None and math.prod(
+        sizes[a] for a in axis_names(m)) > 1 else None for m in ps)
 
 
 def param_shardings(spec_tree, plan: Plan):
@@ -61,27 +69,30 @@ def opt_state_shardings(spec_tree, plan_or_rules):
     return {"mu": ps, "nu": ps, "step": ()}
 
 
-def sharded_dim(pspec: Tuple) -> Optional[Tuple[int, str]]:
-    """(dim, mesh axis) of a placement that shards one dim, else None."""
-    dims = [(i, m) for i, m in enumerate(pspec) if m is not None]
-    if not dims:
-        return None
-    if len(dims) > 1 or isinstance(dims[0][1], tuple):
-        raise NotImplementedError(
-            f"placement {pspec}: the port shards a tensor over one mesh "
-            "axis in one dim")
-    return dims[0]
+def axis_names(m) -> Tuple[str, ...]:
+    """The mesh axes of a placement entry (one name or a tuple)."""
+    return tuple(m) if isinstance(m, (tuple, list)) else (m,)
+
+
+def cuts(pspec: Tuple) -> List[Tuple[int, object]]:
+    """(dim, mesh axis or tuple of axes) of every dim the placement cuts."""
+    return [(i, m) for i, m in enumerate(pspec) if m is not None]
+
+
+def local_shape(shape, pspec: Tuple, sizes: Dict[str, int]) -> Tuple:
+    """The shape of a rank's part of a tensor of ``shape``."""
+    out = list(shape)
+    for d, m in cuts(pspec):
+        out[d] = C.part(out[d], math.prod(sizes[a] for a in axis_names(m)))
+    return tuple(out)
 
 
 def cut(full: torch.Tensor, pspec: Tuple, mesh) -> torch.Tensor:
     """This rank's part of ``full`` under ``pspec`` (a private copy)."""
-    sd = sharded_dim(pspec)
-    if sd is None:
-        return full.clone()
-    dim, axis = sd
-    return C.local_slice(full, dim, mesh.axis(axis)).clone()
+    for dim, m in cuts(pspec):
+        full = C.local_slice(full, dim, mesh.axis(m))
+    return full.clone()
 
 
 def cut_tree(tree, pspecs, mesh):
     return tree_map(lambda t, ps: cut(t, ps, mesh), tree, pspecs)
-

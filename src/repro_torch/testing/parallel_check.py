@@ -3,6 +3,8 @@
 
     PYTHONPATH=src python -m repro_torch.testing.parallel_check ARCH \\
         --ranks N [--device cpu|cuda]
+    PYTHONPATH=src python -m repro_torch.testing.parallel_check ARCH \\
+        --mesh 2x2|2x1x2 [--device cpu|cuda]
 
 spawns N ranks (gloo on the CPU, NCCL on CUDA, where rank r takes card
 r; NCCL refuses two ranks on one card) and, for every technique in the
@@ -12,7 +14,10 @@ and every parameter within ``--tol`` (2e-2), the reference's contract.
 Prints one line per technique, with a rank's resident bytes and its
 peak bytes in the step and in the checkpoint's gather
 (:func:`peak_bytes`) over P, the one-device parameter bytes, and exits
-non-zero on any ``FAIL``.
+non-zero on any ``FAIL``.  With ``--mesh`` it runs the dry run's 2-D
+(or 3-D) rules plan on 4 ranks instead (:func:`check_rules`): one train
+step without and with remat, and a prefill whose every rank's last
+logits and state parts are held against the one-device prefill.
 
 :func:`technique_steps` is the per-rank work of the check, and
 :func:`segments` trains checkpointed segments under changing
@@ -102,7 +107,6 @@ def technique_steps(group, cfg, opt_cfg, params_np, batch_np, techniques,
         resident = sum(t.numel() * t.element_size() for t in
                        _leaves(params) + _leaves(opt["mu"])
                        + _leaves(opt["nu"]))
-        world = job.mesh.axis(plan.mesh_axis_names[0])
         local = job.place_batch(batch)
         if measure:
             (params, opt, m), step_peak = peak_bytes(
@@ -115,7 +119,7 @@ def technique_steps(group, cfg, opt_cfg, params_np, batch_np, techniques,
             step_peak = commit_peak = 0
         per_rank = C.all_gather(torch.tensor(
             [[float(resident), float(step_peak), float(commit_peak)]],
-            device=group.device), 0, world).cpu()
+            device=group.device), 0, job.world).cpu()
         if group.rank == 0:
             results[name] = {
                 "params": params_to_numpy(full["params"]),
@@ -168,6 +172,223 @@ def segments(group, cfg, opt_cfg, segs):
         dist.barrier()      # the next segment's ranks read ckpt_out
         out.append(m)
     return out
+
+
+# the meshes of ``--mesh``: 2-D FSDP x TP, and a tuple batch axis over
+# two pods with TP inside each
+MESHES = {"2x2": (("data", 2), ("model", 2)),
+          "2x1x2": (("pod", 2), ("data", 1), ("model", 2))}
+# steps timed after the held one in check_rules
+WARM_STEPS = 3
+
+
+def rules_plan(cfg, mesh_axes, remat: bool = False):
+    """The dry run's layout on a small mesh: the production parameter
+    rules at ``mesh_axes``' sizes (``launch.mesh``; "embed" over data,
+    the heads, ffn, experts, vocab and rnn that divide over model) and
+    the batch over ("pod",) "data"."""
+    import math
+
+    from ..launch.mesh import batch_axes, production_param_rules
+    from ..parallelism.base import Plan
+    multi_pod = "pod" in dict(mesh_axes)
+    prules = production_param_rules(cfg, mesh_axes, multi_pod)
+    rules = {**prules, "batch": batch_axes(multi_pod), "seq": None}
+    return Plan("rules", math.prod(n for _, n in mesh_axes),
+                tuple(mesh_axes), rules, param_policy="rules", remat=remat)
+
+
+def rules_runs(group, cfg, opt_cfg, params_np, batch_np, mesh_axes,
+               warm_steps: int = 0):
+    """Per rank, under :func:`rules_plan`: one train step from the full
+    parameters ``params_np`` on the global batch ``batch_np`` without
+    and with remat, and a prefill of that batch.  Returns, on rank 0,
+    each step's full parameters, mu, nu, metrics (numpy; keyed by
+    remat) and seconds, and every rank's prefill parts: its mesh
+    coordinates, its last logits and its part of each state leaf
+    (slash-joined path); ``prefill_s`` is rank 0's prefill seconds.
+    The held step is a first one, warm-up included; ``warm_steps`` more
+    steps after it are timed alone (``warm_step_s``)."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from ..models.params import (params_from_numpy, params_to_numpy,
+                                 tree_leaves_with_paths)
+    from ..models.transformer import prefill_forward
+    from ..optim.adamw import init_opt_state
+    from ..parallelism.build import BuiltJob
+    batch = {k: torch.as_tensor(v, device=group.device)
+             for k, v in batch_np.items()}
+
+    def timed(fn):
+        """fn() and its seconds on this rank, the device synchronised."""
+        dist.barrier()
+        t0 = time.perf_counter()
+        got = fn()
+        if group.device.type == "cuda":
+            torch.cuda.synchronize(group.device)
+        return got, time.perf_counter() - t0
+
+    out = {}
+    for remat in (False, True):
+        job = BuiltJob(cfg, rules_plan(cfg, mesh_axes, remat), opt_cfg,
+                       group=group)
+        params = job.shard(params_from_numpy(params_np, device=group.device))
+        opt = init_opt_state(params)
+        local = job.place_batch(batch)
+        (params, opt, m), secs = timed(lambda: job.step(params, opt, local))
+        full = job.full_state(params, opt)
+        if group.rank == 0:
+            # copies: on the CPU a whole leaf is the rank's own tensor,
+            # which the timed steps update in place
+            copy = lambda t: {k: v.copy()
+                              for k, v in params_to_numpy(t).items()}
+            out[remat] = {
+                "params": copy(full["params"]),
+                "mu": copy(full["opt"]["mu"]),
+                "nu": copy(full["opt"]["nu"]),
+                "step": int(full["opt"]["step"]),
+                "metrics": {k: float(v) for k, v in m.items()},
+                "step_s": secs}
+        warm = [timed(lambda: job.step(params, opt, local))[1]
+                for _ in range(warm_steps)]
+        if group.rank == 0:
+            out[remat]["warm_step_s"] = warm
+    job = BuiltJob(cfg, rules_plan(cfg, mesh_axes), opt_cfg, group=group)
+    params = job.shard(params_from_numpy(params_np, device=group.device))
+    local = job.place_batch(batch)
+
+    def prefill():
+        with torch.no_grad(), job.running(params):
+            return prefill_forward(params, cfg, local, opts={})
+    (logits, state), prefill_s = timed(prefill)
+    out["prefill_s"] = prefill_s
+    mine = {"coords": dict(zip(job.mesh.names, job.mesh.coords)),
+            "logits": logits.cpu().numpy(),
+            "pos": int(state["pos"]),
+            "state": {"/".join(p): t.cpu().numpy() for p, t in
+                      tree_leaves_with_paths(state["layers"])}}
+    parts = [None] * group.size if group.rank == 0 else None
+    dist.gather_object(mine, parts, dst=0)
+    if group.rank == 0:
+        out["prefill"] = parts
+    return out
+
+
+def rules_runs_on(group, cfg, opt_cfg, params_np, batch_np, meshes):
+    """:func:`rules_runs` on each mesh of ``meshes`` (name -> mesh axes)
+    in one group; results by name."""
+    return {name: rules_runs(group, cfg, opt_cfg, params_np, batch_np, axes)
+            for name, axes in meshes.items()}
+
+
+def expected_part(full, part_shape, coords, mesh_axes, batch_dim):
+    """The slice of a one-device prefill output ``full`` that a rank at
+    ``coords`` holds: its rows along ``batch_dim`` (the ("pod", "data")
+    index, row-major) and, on a dim the rank holds a ``model``-th of, its
+    model index's part."""
+    import numpy as np
+    sizes = dict(mesh_axes)
+    rows = [a for a in ("pod", "data") if a in sizes]
+    b_index = int(np.ravel_multi_index([coords[a] for a in rows],
+                                       [sizes[a] for a in rows]))
+    at = []
+    for d, (n, k) in enumerate(zip(full.shape, part_shape)):
+        if n == k:
+            at.append(slice(None))
+            continue
+        idx = b_index if d == batch_dim else coords["model"]
+        at.append(slice(idx * k, (idx + 1) * k))
+    return full[tuple(at)]
+
+
+def check_rules(arch_id: str = "h2o-danube-3-4b", mesh: str = "2x2",
+                device: str = "cpu", tol: float = DEFAULT_TOL):
+    """A rules plan on ``mesh`` (:data:`MESHES`) against the port's one
+    device: one train step without and with remat (loss, every
+    parameter and the gradient norm, relative, within ``tol``) and a
+    prefill (every rank's last logits
+    and its part of each state leaf within ``tol`` of the leaf's largest
+    value); one result a check."""
+    import numpy as np
+
+    from ..configs import concrete_batch, get_config
+    from ..models.params import (params_from_numpy, params_to_numpy,
+                                 tree_leaves_with_paths)
+    from ..models.transformer import prefill_forward, state_batch_axes
+    from ..optim.adamw import AdamWConfig
+    from ..parallelism.build import BuiltJob
+    from ..parallelism.dist import spawn
+    from ..parallelism.techniques import DDP
+
+    mesh_axes = MESHES[mesh]
+    cfg = get_config(arch_id).reduced(num_layers=4)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    base = BuiltJob(cfg, DDP().plan(cfg, 1), opt_cfg, device="cpu")
+    params, opt = base.init(42)
+    params_np = {k: v.copy() for k, v in params_to_numpy(params).items()}
+    batch = concrete_batch(cfg, 8, 32, device="cpu")
+    ref_logits, ref_state = prefill_forward(
+        params_from_numpy(params_np, device="cpu"), cfg, batch, opts={})
+    p_ref, _, m_ref = base.step(params, opt, batch)
+    ref = params_to_numpy(p_ref)
+    ref_loss = float(m_ref["loss"])
+    print(f"[baseline] {arch_id} loss={ref_loss:.6f}", flush=True)
+    plan = rules_plan(cfg, mesh_axes)
+    devices = [f"cuda:{r}" if device == "cuda" else "cpu"
+               for r in range(plan.n_devices)]
+    got = spawn(rules_runs, devices, cfg, opt_cfg, params_np,
+                {k: v.numpy() for k, v in batch.items()}, mesh_axes,
+                WARM_STEPS)
+    results = []
+    for remat in (False, True):
+        r = got[remat]
+        loss = r["metrics"]["loss"]
+        diff = max(float(np.max(np.abs(r["params"][k] - ref[k])))
+                   for k in ref)
+        # the first AdamW step moves a parameter by about lr whatever
+        # its gradient's size, so the gradient is held by its norm
+        ref_gn = float(m_ref["grad_norm"])
+        dgn = abs(r["metrics"]["grad_norm"] - ref_gn) / ref_gn
+        ok = abs(loss - ref_loss) < tol and diff < tol and dgn < tol
+        name = f"rules {mesh}{' remat' if remat else ''}"
+        print(f"[{name}] loss={loss:.6f} dloss={abs(loss - ref_loss):.2e} "
+              f"max_param_diff={diff:.2e} rel_dgrad_norm={dgn:.2e} "
+              f"first_step_s={r['step_s']:.3f} "
+              f"warm_step_s={','.join(f'{t:.4f}' for t in r['warm_step_s'])}"
+              f" {'OK' if ok else 'FAIL'}", flush=True)
+        results.append({"check": name, "loss": loss, "ok": ok,
+                         "dloss": abs(loss - ref_loss),
+                         "max_param_diff": diff, "rel_dgrad_norm": dgn,
+                         "step_s": r["step_s"],
+                         "warm_step_s": r["warm_step_s"]})
+    full = {"/".join(p): t.numpy() for p, t in
+            tree_leaves_with_paths(ref_state["layers"])}
+    axes = {"/".join(p): a for p, a in
+            tree_leaves_with_paths(state_batch_axes(cfg)["layers"])}
+    # relative to each output's largest value: on the raw init the
+    # residual stream reaches |x| ~ 100 and the caches and logits with it
+    diff = 0.0
+
+    def worst(part, want):
+        err = float(np.max(np.abs(part - want)))
+        return err / max(float(np.max(np.abs(want))), 1e-30)
+    for part in got["prefill"]:
+        diff = max(diff, worst(part["logits"], expected_part(
+            ref_logits.numpy(), part["logits"].shape, part["coords"],
+            mesh_axes, 0)))
+        for k, v in part["state"].items():
+            diff = max(diff, worst(v, expected_part(
+                full[k], v.shape, part["coords"], mesh_axes, axes[k])))
+    ok = diff < tol
+    print(f"[prefill {mesh}] rules={plan.rules} max_rel_diff="
+          f"{diff:.2e} prefill_s={got['prefill_s']:.3f} "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    results.append({"check": f"prefill {mesh}", "ok": ok,
+                    "max_rel_diff": diff, "prefill_s": got["prefill_s"]})
+    return results
 
 
 def check(arch_id: str = "h2o-danube-3-4b", ranks: int = 2,
@@ -237,16 +458,23 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("arch", nargs="?", default="h2o-danube-3-4b")
     ap.add_argument("--ranks", type=int, default=2)
+    ap.add_argument("--mesh", choices=sorted(MESHES),
+                    help="a rules plan on this mesh (4 ranks) in place of "
+                         "the techniques at --ranks")
     ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
     ap.add_argument("--tol", type=float, default=DEFAULT_TOL)
     args = ap.parse_args(argv)
+    ranks = 4 if args.mesh else args.ranks
     if args.device == "cuda":
         import torch
-        if torch.cuda.device_count() < args.ranks:
-            print(f"parallel_check: {args.ranks} ranks need as many cards "
+        if torch.cuda.device_count() < ranks:
+            print(f"parallel_check: {ranks} ranks need as many cards "
                   f"(found {torch.cuda.device_count()})", file=sys.stderr)
             return 2
-    results = check(args.arch, args.ranks, args.device, args.tol)
+    if args.mesh:
+        results = check_rules(args.arch, args.mesh, args.device, args.tol)
+    else:
+        results = check(args.arch, args.ranks, args.device, args.tol)
     return int(not all(r["ok"] for r in results))
 
 

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from ..models.config import ModelConfig
 from ..parallelism import collectives as C
-from ..parallelism.context import current_tp
+from ..parallelism.context import tp_for
 from ..models.params import tree_leaves_with_paths, tree_map
 from ..models.transformer import decode_step, forward
 from ..optim.adamw import AdamWConfig, adamw_update
@@ -35,7 +35,7 @@ def _ce_from_logits(cfg: ModelConfig, logits, batch):
         n_prefix = logits.shape[1] - tokens.shape[1]  # VLM patch prefix
         pred = logits[:, n_prefix:][:, :-1]
         targets = tokens[:, 1:]
-    tp = current_tp()
+    tp = tp_for("vocab")
     if tp is None:
         logp = F.log_softmax(pred.float(), dim=-1)
         nll = -torch.take_along_dim(logp, targets[..., None].long(),

@@ -377,6 +377,45 @@ def test_remat_recomputes_each_layer_group_with_its_own_params():
         np.testing.assert_array_equal(pa[k], pb[k], err_msg=k)
 
 
+def test_remat_recompute_runs_under_its_forward_rules(monkeypatch):
+    """On a CUDA device autograd runs the backward, and with it a remat
+    recompute, on a thread of its own, where the caller's axis rules
+    are not set.  Each block must still see the rules of its forward:
+    here the backward runs from another thread."""
+    import threading
+
+    from repro_torch.models import transformer as T
+    from repro_torch.parallelism.context import axis_rules, current_rules
+    cfg = get_config("recurrentgemma-2b").reduced(num_layers=4)
+    params = T.tree_map(lambda t: t.requires_grad_(True),
+                        T.init_model(cfg, 0, device="cpu"))
+    batch = concrete_batch(cfg, 2, 16, device="cpu")
+    seen, failed = [], []
+    block = T._block_apply
+
+    def spy(*args, **kwargs):
+        seen.append(current_rules())
+        return block(*args, **kwargs)
+    monkeypatch.setattr(T, "_block_apply", spy)
+    rules = {"batch": None, "seq": None}
+    with axis_rules(rules, None):
+        logits, _ = T.forward(params, cfg, batch, remat=True)
+    n_forward = len(seen)
+
+    def backward():
+        try:
+            logits.float().sum().backward()
+        except Exception as e:  # noqa: BLE001 (raised below, on this thread)
+            failed.append(e)
+    worker = threading.Thread(target=backward)
+    worker.start()
+    worker.join()
+    assert not failed, failed
+    assert n_forward == 4 and len(seen) == 2 * n_forward
+    assert all(r is rules for r in seen)
+    assert current_rules() is None
+
+
 def test_plan_shapes():
     cfg = get_config("h2o-danube-3-4b")
     for t in DEFAULT_TECHNIQUES:

@@ -259,3 +259,30 @@ def test_analyze_step_counts_a_matmul_and_its_live_bytes():
     assert a["peak_bytes"] == 4 * (8 * 16 + 16 * 32 + 8 * 32)
     assert a["collectives"] == {"total": 0.0}
     assert math.isfinite(a["flops"])
+
+
+def test_peak_top_groups_the_bytes_live_at_the_peak():
+    """At the peak both (8, 32) fp32 products and the relu of the
+    second are live beside the arguments (the sum comes after the
+    second product is freed).  ``at_peak`` groups them by op, shape and
+    dtype, largest first, and its groups add up to the peak."""
+    from repro_torch.models.params import ShapeDtype
+
+    def fn(x, w):
+        y = x @ w
+        z = torch.relu(x @ w) + y
+        del y
+        return z * 2
+
+    args = (ShapeDtype((8, 16), torch.float32), torch.zeros(16, 32))
+    a = S.analyze_step(fn, args, peak_top=10)
+    assert a["peak_bytes"] == S.analyze_step(fn, args)["peak_bytes"]
+    got = {(op, shape): (n, c) for n, c, op, shape, _ in a["at_peak"]}
+    assert sum(n for n, _ in got.values()) == a["peak_bytes"]
+    assert [e[0] for e in a["at_peak"]] == sorted(
+        (e[0] for e in a["at_peak"]), reverse=True)
+    assert got[("argument", (8, 16))] == (8 * 16 * 4, 1)
+    assert got[("argument", (16, 32))] == (16 * 32 * 4, 1)
+    assert got[("aten.mm.default", (8, 32))] == (2 * 8 * 32 * 4, 2)
+    assert got[("aten.relu.default", (8, 32))] == (8 * 32 * 4, 1)
+    assert len(S.analyze_step(fn, args, peak_top=1)["at_peak"]) == 1
