@@ -65,11 +65,18 @@ cuda`` on four cards):
   group's set-up, NCCL's version, s a step and peak memory;
 - ``par_2d_group1``: the same for the dry run's rules plan on (data 1,
   model 1) (two mesh axes, their flattened group, the bucketed gradient
-  all-reduce), against the no-group ``ddp`` step;
+  all-reduce), against the no-group ``ddp`` step; then, in that group,
+  a prefill of B 8 x S 128 and four greedy decode steps from it under
+  the rules plan with the decode state placed by ``cache_shardings``,
+  tokens, logits and every state leaf bit-equal to the no-group
+  ``prefill_forward`` and ``decode_step``;
 - ``dryrun_one``: one full-width combination of the multi-pod dry run,
   gemma3-4b ``train_4k`` on the 16x16 mesh, through ``run_one`` on the
   host's CPU (rank 0's step traced on meta tensors in a fake group of
-  256 ranks), gated on ``status == "ok"``, with its ``wall_s``.
+  256 ranks), gated on ``status == "ok"``, with its ``wall_s``;
+- ``dryrun_decode``: the same for a decode combination, stablelm-12b
+  ``decode_32k`` on the 16x16 mesh under ``--preset optimized`` (its KV
+  cache cut by sequence over model, its q heads by the rules).
 
 Then Saturn's own loop (profile -> solve -> execute -> observe ->
 replan) on xlstm-125m jobs at full width and 4 layers (the steps are
@@ -180,8 +187,13 @@ MOE_W_ATOL, MOE_FP32_RTOL = 1e-6, 1e-5
 # group; par_2d_group1 the same for the dry run's rules plan on this mesh
 PAR_STEPS = 2
 PAR_2D_MESH = (("data", 1), ("model", 1))
-# dryrun_one: (arch, shape, multi_pod) of the dry run's combination
-DRYRUN_ONE = ("gemma3-4b", "train_4k", False)
+# par_2d_group1's decode: greedy steps from a prefill of SATURN_B x
+# SATURN_S
+PAR_DECODE_STEPS = 4
+# dryrun_one / dryrun_decode: (arch, shape, multi_pod, preset) of the dry
+# run's combinations
+DRYRUN_ONE = ("gemma3-4b", "train_4k", False, "baseline")
+DRYRUN_DECODE = ("stablelm-12b", "decode_32k", False, "optimized")
 
 
 def emit(phase, **kv):
@@ -1507,14 +1519,16 @@ def train_phases():
 
 # ------------------------------------------------- process groups
 
-def groups_of_one(phase, plans):
+def groups_of_one(phase, plans, after=None):
     """For each (plan, its no-group plan) of ``plans(cfg)`` (by name), on
     xlstm-125m at full width and ``HOST_LAYERS`` layers, fp32, B 8 x S
     128: PAR_STEPS steps through the multi-device BuiltJob as rank 0 of
     a world-size-1 NCCL group and through the no-group BuiltJob from the
     same seed and batches; losses, grad norms and every parameter
     bit-equal.  Times the group's set-up: init (with ``device_id`` bound
-    NCCL builds its communicator there) and the first collective."""
+    NCCL builds its communicator there) and the first collective.
+    ``after(group, cfg, batch)``, where given, runs in the group last,
+    and its dict joins the result."""
     import torch
     import torch.distributed as dist
     from repro_torch.data.synthetic import SyntheticLM
@@ -1566,6 +1580,7 @@ def groups_of_one(phase, plans):
             out[tech] = {"no_group": a, "group": b,
                          "bit_equal_params_losses": True}
             torch.cuda.empty_cache()
+        extra = after(group, cfg, batches[0]) if after is not None else {}
     finally:
         group.destroy()
         saturn_cleanup(d)
@@ -1573,7 +1588,8 @@ def groups_of_one(phase, plans):
             "seq": SATURN_S, "steps": PAR_STEPS, "backend": "nccl",
             "world_size": 1, "nccl_version": nccl_version(),
             "init_process_group_s": init_s,
-            "first_collective_s": first_collective_s, "techniques": out}
+            "first_collective_s": first_collective_s, "techniques": out,
+            **extra}
 
 
 def par_group1():
@@ -1587,30 +1603,86 @@ def par_group1():
     return groups_of_one("par_group1", plans)
 
 
+def decode_group1(group, cfg, batch):
+    """A prefill of ``batch`` and PAR_DECODE_STEPS greedy decode steps
+    from it, under the rules plan on PAR_2D_MESH as rank 0 of ``group``
+    (the decode state placed by ``cache_shardings``, every axis of one
+    rank) and without a group, from the same fp32 weights: tokens,
+    logits and every state leaf bit-equal.  Each side's seconds."""
+    import torch
+    from repro_torch.launch.mesh import cache_shardings
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.params import tree_leaves_with_paths
+    from repro_torch.models.transformer import (greedy_tokens, init_model,
+                                                prefill_forward)
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallelism.build import BuiltJob
+    from repro_torch.testing.parallel_check import greedy_decode, rules_plan
+    params = init_model(cfg, seed=0, device="cuda")
+    b, s = batch["tokens"].shape
+    layout, _ = cache_shardings(cfg, InputShape("decode", s, b, "decode"),
+                                PAR_2D_MESH, False)
+    runs = {}
+    for name in ("no_group", "group"):
+        job = None if name == "no_group" else BuiltJob(
+            cfg, rules_plan(cfg, PAR_2D_MESH), AdamWConfig(), group=group)
+        p = params if job is None else job.shard(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if job is None:
+                logits, state = prefill_forward(p, cfg, batch, opts={})
+            else:
+                with job.running(p):
+                    logits, state = prefill_forward(p, cfg, batch, opts={})
+        steps, state = greedy_decode(cfg, p, greedy_tokens(logits), state,
+                                     PAR_DECODE_STEPS, job,
+                                     None if job is None else layout)
+        torch.cuda.synchronize()
+        runs[name] = {"seconds": time.perf_counter() - t0, "steps": steps,
+                      "state": [t for _, t in
+                                tree_leaves_with_paths(state["layers"])]}
+    a, c = runs["no_group"], runs["group"]
+    unequal = [i for i, ((la, ta), (lc, tc)) in enumerate(
+        zip(a["steps"], c["steps"]))
+        if not (torch.equal(ta, tc) and torch.equal(la, lc))]
+    unequal += [f"state {i}" for i, (x, y) in enumerate(
+        zip(a["state"], c["state"])) if not torch.equal(x, y)]
+    if unequal:
+        raise AssertionError(f"decode in a group of one is not the "
+                             f"no-group decode: {unequal[:5]}")
+    return {"decode": {
+        "prefill_batch": b, "prefill_seq": s, "steps": PAR_DECODE_STEPS,
+        "tokens": [t[:, 0].tolist() for _, t in c["steps"]],
+        "no_group_s": a["seconds"], "group_s": c["seconds"],
+        "bit_equal_tokens_logits_state": True}}
+
+
 def par_2d_group1():
     """The dry run's rules plan on (data 1, model 1): its mesh of two
     axes and their flattened group, placements, the bucketed gradient
     all-reduce and the batch axes, against the one-device ddp step
-    (:func:`groups_of_one`)."""
+    (:func:`groups_of_one`); then its decode (:func:`decode_group1`)."""
     from repro_torch.core.library import ParallelismLibrary
     from repro_torch.testing.parallel_check import rules_plan
 
     def plans(cfg):
         return {"rules": (rules_plan(cfg, PAR_2D_MESH),
                           ParallelismLibrary().get("ddp").plan(cfg, 1))}
-    out = groups_of_one("par_2d_group1", plans)
+    out = groups_of_one("par_2d_group1", plans, after=decode_group1)
     return {"mesh": dict(PAR_2D_MESH), **out}
 
 
-def dryrun_one():
-    """One full-width combination of the multi-pod dry run through
-    ``run_one``: rank 0 of DRYRUN_ONE's step traced on meta tensors in
-    a fake group of 256 ranks (host CPU only, no card)."""
+def dryrun_record(phase, combination):
+    """One full-width combination (arch, shape, multi_pod, preset) of the
+    multi-pod dry run through ``run_one``: rank 0's step traced on meta
+    tensors in a fake group of 256 ranks (host CPU only, no card),
+    gated on ``status == "ok"``."""
     from repro_torch.launch.dryrun import run_one
-    arch, shape, multi_pod = DRYRUN_ONE
-    rec = run_one(arch, shape, multi_pod, verbose=False)
+    arch, shape, multi_pod, preset = combination
+    rec = run_one(arch, shape, multi_pod, preset=preset, verbose=False)
     if rec["status"] != "ok":
-        raise AssertionError(f"dryrun_one: {rec.get('error', rec)}\n"
+        raise AssertionError(f"{phase}: {rec.get('error', rec)}\n"
                              f"{rec.get('traceback', '')}")
     return rec
 
@@ -1623,8 +1695,10 @@ def par_phases(smi):
          kernel_launches=check_no_launches("par_group1"))
     emit("par_2d_group1", nvidia_smi=smi, **par_2d_group1(),
          kernel_launches=check_no_launches("par_2d_group1"))
-    emit("dryrun_one", **dryrun_one(),
+    emit("dryrun_one", **dryrun_record("dryrun_one", DRYRUN_ONE),
          kernel_launches=check_no_launches("dryrun_one"))
+    emit("dryrun_decode", **dryrun_record("dryrun_decode", DRYRUN_DECODE),
+         kernel_launches=check_no_launches("dryrun_decode"))
 
 
 # ------------------------------------------------------- Saturn's loop

@@ -17,9 +17,22 @@ other 255 or 511 ranks: the train function is the ``BuiltJob`` step,
 the prefill function ``prefill_forward`` inside the job's ``running``
 context.  No card and no memory are needed.
 
-Every train and prefill combination must trace; a failure is a fault of
-the port's 2-D program.  Decode shapes wait for sharded caches (ROADMAP
-A13b) and are recorded as ``not_ported``.
+The decode function is ``decode_step`` inside the job's ``running``
+context with the state's placements (``mesh.cache_shardings`` under the
+``cache_policy``), then the next token's argmax over the rank's vocab
+part: one token of each of the rank's rows against its part of every KV
+cache and recurrent state.  A decode record counts that one step:
+the flops of the projections, the attention over the rank's part of the
+caches and the unembedding; as ``bytes_written`` the output of every op,
+where the in-place append of one token's k and v counts the whole
+mutated cache part, as the reference's ``dynamic-update-slice`` writes
+its whole output buffer; as collectives the activations that move (q,
+the scores or the softmax statistics, the attention output, one token's
+k and v, the recurrent states re-laid); and as ``argument_bytes`` the
+parameters, the tokens and the state parts.
+
+Every combination must trace; a failure is a fault of the port's 2-D
+program.
 """
 from __future__ import annotations
 
@@ -40,11 +53,8 @@ from ..models.transformer import model_spec
 from ..parallelism.base import Plan
 from ..parallelism.build import TP_LOGICAL_AXES
 from ..parallelism.shardings import axis_names, local_shape, param_pspec
-from .mesh import (activation_rules, make_production_mesh, mesh_sizes,
-                   production_param_rules)
-
-NOT_PORTED = ("decode under sharded KV caches and recurrent states "
-              "(cache_shardings) is ROADMAP A13b")
+from .mesh import (activation_rules, cache_shardings, make_production_mesh,
+                   mesh_sizes, production_param_rules)
 
 
 def _rank_batch(batch_specs, sizes, bax):
@@ -62,26 +72,29 @@ def build_lowerable(cfg: ModelConfig, shape: InputShape, mesh,
                     multi_pod: bool, *, remat: Optional[bool] = None,
                     extra_opts: Optional[dict] = None,
                     rules_override: Optional[dict] = None,
-                    param_rules_override: Optional[dict] = None):
+                    param_rules_override: Optional[dict] = None,
+                    cache_policy: str = "heads"):
     """Returns (fn, args, plan): ``analyze_step(fn, args,
     world_size=plan.n_devices)`` traces one rank of ``plan`` on ``mesh``
     (a ``mesh_axes`` tuple).  ``args`` are that rank's parts as
     ``ShapeDtype``: the parameters in bf16 and, for train, AdamW's mu
     and nu in fp32, cut by the parameter rules, and its rows of the
-    batch.  One rules dict places both: the activation rules with
-    ``rules_override``, and on the axes the parameters are cut on (the
-    tensor-parallel ones and "embed") the parameter rules with
-    ``param_rules_override``, since the model splits its work where the
-    parameters are cut."""
+    batch (decode: of ``tokens``, (B, 1)), and for decode its part of
+    every leaf of the decode state under ``cache_shardings(...,
+    policy=cache_policy)``.  One rules dict places both: the activation
+    rules with ``rules_override``, and on the axes the parameters are
+    cut on (the tensor-parallel ones and "embed") the parameter rules
+    with ``param_rules_override``, since the model splits its work
+    where the parameters are cut.  A decode ``fn`` returns (the next
+    tokens, the new state)."""
     from torch.utils._python_dispatch import _disable_current_modes
 
-    from ..models.transformer import prefill_forward
+    from ..models.transformer import (decode_step, greedy_tokens,
+                                      prefill_forward)
     from ..optim.adamw import AdamWConfig
     from ..parallelism.build import BuiltJob
     from .step_analysis import META, current_group
 
-    if shape.mode == "decode":
-        raise NotImplementedError(NOT_PORTED)
     prules = production_param_rules(cfg, mesh, multi_pod)
     if param_rules_override:
         prules.update(param_rules_override)
@@ -103,11 +116,15 @@ def build_lowerable(cfg: ModelConfig, shape: InputShape, mesh,
     params = part(torch.bfloat16)
     batch = _rank_batch(input_specs(cfg, shape), sizes, rules.get("batch"))
 
-    def job():
-        # built real and uncounted, as rank 0 of the analysis' group
+    def job(layout=None):
+        # built real and uncounted, as rank 0 of the analysis' group,
+        # with the axes of the decode state's placements
         with _disable_current_modes():
-            return BuiltJob(cfg, plan, AdamWConfig(), device=META,
-                            group=current_group(), opts=opts)
+            built = BuiltJob(cfg, plan, AdamWConfig(), device=META,
+                             group=current_group(), opts=opts)
+            if layout is not None:
+                built.flatten_layout(layout)
+            return built
 
     if train:
         def fn(params, opt_state, batch):
@@ -117,11 +134,26 @@ def build_lowerable(cfg: ModelConfig, shape: InputShape, mesh,
                "step": ShapeDtype((), torch.int32)}
         return fn, (params, opt, batch), plan
 
-    def fn(params, batch):
-        built = job()
-        with torch.no_grad(), built.running(params):
-            return prefill_forward(params, cfg, batch, opts=opts)
-    return fn, (params, batch), plan
+    if shape.mode == "prefill":
+        def fn(params, batch):
+            built = job()
+            with torch.no_grad(), built.running(params):
+                return prefill_forward(params, cfg, batch, opts=opts)
+        return fn, (params, batch), plan
+
+    # decode: one token against a seq_len cache
+    layout, spec = cache_shardings(cfg, shape, mesh, multi_pod,
+                                   policy=cache_policy)
+    state = tree_map(lambda s, pl: ShapeDtype(
+        local_shape(s.shape, pl, sizes), s.dtype), spec, layout)
+
+    def fn(params, tokens, state):
+        built = job(layout)
+        with torch.no_grad(), built.running(params, layout):
+            logits, new_state = decode_step(params, cfg, tokens, state,
+                                            opts=opts)
+            return greedy_tokens(logits), new_state
+    return fn, (params, batch["tokens"], state), plan
 
 
 def optimized_overrides(cfg: ModelConfig, shape: InputShape) -> dict:
@@ -190,15 +222,18 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, *,
             remat: Optional[bool] = None, extra_opts: Optional[dict] = None,
             rules_override: Optional[dict] = None,
             param_rules_override: Optional[dict] = None,
-            preset: str = "baseline", peak_top: int = 0,
-            verbose: bool = True) -> dict:
+            cache_policy: str = "heads", preset: str = "baseline",
+            peak_top: int = 0, verbose: bool = True) -> dict:
     """One combination's record, with the reference's keys: ``arch``,
     ``shape``, ``mesh``, ``mode``, ``preset``, ``status`` ("ok",
-    "skipped", "not_ported" or "fail"), ``flops``, ``bytes_written``,
-    ``collectives`` (payload bytes by kind, and ``total``), ``wall_s``
-    and ``memory``: ``argument_bytes`` (the rank's parameter, optimizer
-    state and batch bytes) and ``peak_per_device`` (the analyzer's peak
-    of live bytes on the rank, arguments included).  All per rank 0.
+    "skipped" or "fail"), ``flops``, ``bytes_written``, ``collectives``
+    (payload bytes by kind, and ``total``), ``wall_s`` and ``memory``:
+    ``argument_bytes`` (the rank's parameter, optimizer state, batch
+    and decode state bytes) and ``peak_per_device`` (the analyzer's
+    peak of live bytes on the rank, arguments included).  All per rank
+    0; a decode record counts one decode step (the module's docstring).
+    ``cache_policy`` places the decode state (``"heads"`` or ``"seq"``;
+    the optimized preset's ``optimized_overrides`` choose it).
 
     Where the reference's numbers have no counterpart the port records
     its own: ``trace_s`` (the analysis) for ``lower_s`` and
@@ -220,6 +255,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, *,
                           **(rules_override or {})} or None
         param_rules_override = {**kw.get("param_rules_override", {}),
                                 **(param_rules_override or {})} or None
+        cache_policy = kw.get("cache_policy", cache_policy)
         remat = kw.get("remat", remat)
     mesh_name = "multipod_2x16x16" if multi_pod else "pod_16x16"
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
@@ -229,17 +265,14 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, *,
         rec["reason"] = ("pure full-attention arch: long_500k requires "
                          "sub-quadratic attention (DESIGN.md)")
         return rec
-    if shape.mode == "decode":
-        rec["status"] = "not_ported"
-        rec["reason"] = NOT_PORTED
-        return rec
     mesh = make_production_mesh(multi_pod=multi_pod)
     t0 = time.time()
     try:
         fn, args, plan = build_lowerable(
             cfg, shape, mesh, multi_pod, remat=remat,
             extra_opts=extra_opts, rules_override=rules_override,
-            param_rules_override=param_rules_override)
+            param_rules_override=param_rules_override,
+            cache_policy=cache_policy)
         t1 = time.time()
         got = analyze_step(fn, args, world_size=plan.n_devices,
                            peak_top=peak_top)

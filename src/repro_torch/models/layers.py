@@ -9,13 +9,17 @@ Under tensor parallelism (``parallelism.context.tp_for``) each rank
 holds its heads (and its kv heads where the rules cut them) of the
 attention projections and its ffn columns of the FFN: the block's input
 enters through ``copy_in`` and its output leaves through one all-reduce
-(``reduce_out``), Megatron's column and row splits.
+(``reduce_out``), Megatron's column and row splits.  A decode step at
+one position (``_decode``) runs under tensor parallelism too, and on a
+KV cache cut by kv heads, head_dim or sequence (a rules plan's decode
+state).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..parallelism import collectives as C
@@ -86,15 +90,19 @@ _BLOCKWISE_THRESHOLD = 2048
 
 def attention(p, x, cfg: ModelConfig, *, window: int = 0,
               cache: Optional[dict] = None, positions=None, pos=None,
-              attn_fn=None, return_cache: bool = False):
+              attn_fn=None, return_cache: bool = False, place=None):
     """Causal (optionally windowed) GQA attention.
 
     cache=None  -> full-sequence (train / prefill); returns (y, None), or
                    (y, {"k", "v"}) with ``return_cache``.  Sequences
                    >= 2048 use blockwise online-softmax attention.
     cache=dict  -> single-token decode; x is (B, 1, d); cache holds k, v
-                   of shape (B, L, Kv, D); ``pos`` is a scalar or a (B,)
-                   tensor: the index the new token is written at.
+                   of shape (B, L, Kv, D); ``pos`` is the index the new
+                   token is written at: a scalar (:func:`_decode`, which
+                   also runs under tensor parallelism and on a cache
+                   part placed by ``place``, the rank's axis of each
+                   cache dim) or a (B,) tensor, each row at its own
+                   position (continuous batching, one device).
     attn_fn     -> fused attention for the full-sequence path:
                    (q, k, v, window) -> out.
     """
@@ -103,10 +111,16 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0,
     dev = x.device
     if pos is not None:
         pos = torch.as_tensor(pos, device=dev)
+    if cache is not None:
+        if pos.ndim == 0:
+            return _decode(p, x, cfg, window, cache, pos, place)
+        if place is not None or tp_for("heads") is not None \
+                or tp_for("kv_heads") is not None:
+            raise NotImplementedError(
+                "per-row positions under tensor parallelism or on a cut "
+                "cache")
     if positions is None:
-        if pos is not None and pos.ndim == 0:
-            positions = pos.to(torch.int32).expand(b, s)
-        elif pos is not None:
+        if pos is not None:
             positions = pos[:, None].to(torch.int32)  # per-row pos
         else:
             positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
@@ -146,34 +160,111 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0,
             return y, {"k": kv[0], "v": kv[1]}
         return y, None
 
-    # ----- decode: write the new k/v at ``pos``, attend over the cache.
-    # The cache is updated IN PLACE (the JAX package returns new arrays:
-    # dynamic_update_slice for a scalar pos, a one-hot blend for a (B,)
-    # pos); the returned dict holds the same tensors.  index_copy_ /
-    # index_put_ write one row per slot instead of rewriting the cache.
+    # ----- decode at per-row positions: write each row's new k/v at its
+    # pos, attend over the cache.  The cache is updated IN PLACE (the JAX
+    # package returns new arrays, a one-hot blend for a (B,) pos); the
+    # returned dict holds the same tensors.  index_put_ writes one row
+    # per slot instead of rewriting the cache.
     ck, cv = cache["k"], cache["v"]
-    L = ck.shape[1]
-    j = torch.arange(L, device=dev)
-    if pos.ndim == 0:
-        idx = pos.reshape(1).long()
-        ck.index_copy_(1, idx, k.to(ck.dtype))
-        cv.index_copy_(1, idx, v.to(cv.dtype))
-        mask = (j <= pos)[None]                   # (1, L)
-        wpos = pos.reshape(1)
-    else:
-        rows = torch.arange(b, device=dev)
-        ck.index_put_((rows, pos.long()), k[:, 0].to(ck.dtype))
-        cv.index_put_((rows, pos.long()), v[:, 0].to(cv.dtype))
-        mask = j[None] <= pos[:, None]            # (B, L)
-        wpos = pos
+    j = torch.arange(ck.shape[1], device=dev)
+    rows = torch.arange(b, device=dev)
+    ck.index_put_((rows, pos.long()), k[:, 0].to(ck.dtype))
+    cv.index_put_((rows, pos.long()), v[:, 0].to(cv.dtype))
+    mask = j[None] <= pos[:, None]                # (B, L)
     scores = _gqa_scores(q * scale, ck).float()   # (B,Kv,Q,1,L)
     if window:
-        mask = mask & ((wpos[:, None] - j[None]) < window)
+        mask = mask & ((pos[:, None] - j[None]) < window)
     scores = torch.where(mask[:, None, None, None, :], scores,
                          torch.tensor(NEG_INF, device=dev))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = _gqa_out(probs, cv)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, {"k": ck, "v": cv}
+
+
+def _decode(p, x, cfg: ModelConfig, window, cache, pos, place):
+    """One decode step at the scalar ``pos``, on the rank's part of the
+    cache and of the weights.  ``place`` gives the rank's axis of each
+    cache dim (B, L, Kv, D; None: the cache whole); the rows are the
+    block's business (``transformer._block_apply``).  The cache is
+    updated in place (the JAX package's ``dynamic_update_slice`` returns
+    a new array); ``index_copy_`` writes one row instead of rewriting
+    it.  The cache never leaves the rank: only one token's q, k and v,
+    the scores, the softmax statistics and the attention output move.
+
+    - q, k and v are projected on the rank's heads (and kv heads) where
+      the rules cut the weights, roped whole along head_dim, and then
+      re-laid to the cache's layout: the q heads of the rank's kv heads,
+      the rank's slice of head_dim (``collectives.relay``).  Where the
+      kv heads are whole and head_dim is cut, k and v are projected on
+      the rank's slice of head_dim only (k's slices gathered for rope).
+    - head_dim cut: the scores are partial sums, all-reduced before the
+      softmax; ``probs . v`` gives the rank's slice of the output.
+    - sequence cut: the rank holds positions ``offset + arange(L)``,
+      which the mask and the window read; the new k and v are written
+      only by the rank that holds ``pos`` (elsewhere the row is written
+      back as it was), and the softmax is taken across the sequence's
+      ranks in fp32: the row max, then the sum of exponentials and the
+      weighted values in one all-reduce.
+    - The output is re-laid to ``wo``'s heads (all-gathered along
+      head_dim where that was cut), and the rank's part of the output
+      projection is summed over the tensor-parallel axis."""
+    _, ax_s, ax_k, ax_d = place or (None,) * 4
+    tp, tp_kv = tp_for("heads"), tp_for("kv_heads")
+    b = x.shape[0]
+    dev = x.device
+    positions = pos.to(torch.int32).expand(b, 1)
+    proj = lambda w: torch.einsum("bsd,dhk->bshk", x, w)
+    q = rope(proj(p["wq"]), positions, cfg.rope_theta)
+    q = C.relay(C.relay(q, 2, tp, ax_k), 3, None, ax_d)
+    wk, wv = p["wk"], p["wv"]
+    if tp_kv is None and ax_d is not None:
+        # whole kv heads, a head_dim cut: the rank projects its slice of
+        # head_dim, and k's slices are gathered for rope, which pairs
+        # the two halves of head_dim
+        wk, wv = C.local_slice(wk, 2, ax_d), C.local_slice(wv, 2, ax_d)
+        k = rope(C.all_gather(proj(wk), 3, ax_d), positions, cfg.rope_theta)
+        k = C.relay(C.local_slice(k, 3, ax_d), 2, None, ax_k)
+        v = C.relay(proj(wv), 2, None, ax_k)
+    else:
+        k = rope(proj(wk), positions, cfg.rope_theta)
+        k = C.relay(C.relay(k, 2, tp_kv, ax_k), 3, None, ax_d)
+        v = C.relay(C.relay(proj(wv), 2, tp_kv, ax_k), 3, None, ax_d)
+
+    ck, cv = cache["k"], cache["v"]
+    n = ck.shape[1]
+    offset = ax_s.rank * n if ax_s is not None else 0
+    at = pos - offset
+    idx = at.clamp(0, n - 1).reshape(1).long()
+    k, v = k.to(ck.dtype), v.to(cv.dtype)
+    if ax_s is not None:
+        owns = (at >= 0) & (at < n)
+        k = torch.where(owns, k, ck.index_select(1, idx))
+        v = torch.where(owns, v, cv.index_select(1, idx))
+    ck.index_copy_(1, idx, k)
+    cv.index_copy_(1, idx, v)
+    j = offset + torch.arange(n, device=dev)
+    mask = j <= pos
+    if window:
+        mask = mask & ((pos - j) < window)
+    scores = _gqa_scores(q * cfg.resolved_head_dim ** -0.5, ck)
+    if ax_d is not None:
+        scores = C.all_reduce(scores, ax_d)
+    scores = torch.where(mask, scores.float(), NEG_INF)  # (B,Kv,Q,1,n)
+    if ax_s is None:
+        out = _gqa_out(torch.softmax(scores, dim=-1).to(x.dtype), cv)
+    else:
+        top = C.all_reduce(scores.amax(-1, keepdim=True), ax_s,
+                           op=dist.ReduceOp.MAX)
+        e = torch.exp(scores - top)
+        den = e.sum(-1).permute(0, 3, 1, 2).reshape(b, 1, -1, 1)
+        both = C.all_reduce(torch.cat([_gqa_out(e, cv.float()), den], -1),
+                            ax_s)
+        out = (both[..., :-1] / both[..., -1:]).to(x.dtype)
+    out = C.relay(C.relay(out, 3, ax_d, None), 2, ax_k, tp)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if tp is not None:
+        y = C.reduce_out(y, tp)
     return y, {"k": ck, "v": cv}
 
 

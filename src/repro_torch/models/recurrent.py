@@ -17,7 +17,11 @@ recurrences split by channel or by head).  The block's input enters
 through ``copy_in``; products over a split input dim are summed by a
 reduce-scatter onto the rank's channels or heads (an all-reduce where
 the heads stay whole), and the block's output by one all-reduce.  A
-prefill returns the state of the rank's channels or heads.
+prefill returns the state of the rank's channels or heads.  A decode
+step takes its tensor-parallel path too, on the rank's parts of a
+decode state placed as ``launch.mesh.cache_shardings`` places it
+(``place``), re-laying the small recurrent states where their cut is not
+the weights'.
 """
 from __future__ import annotations
 
@@ -120,14 +124,18 @@ def rglru_scan_ref(a, b):
 
 
 def rglru_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
-                scan_fn=None, return_state: bool = False):
+                scan_fn=None, return_state: bool = False, place=None):
     """Griffin recurrent block.  x: (B,S,d).  Returns (y, new_state).
 
     state=None: full sequence through ``scan_fn`` (a, b) -> h, by default
     ``rglru_scan_ref``; with ``return_state`` the decode state is h's
     last step (float32) and the conv tail.  state=dict: one decode step,
-    x is (B, 1, d), h carried in float32."""
-    tp = tp_for("rnn") if state is None else None
+    x is (B, 1, d), h carried in float32.  Under ``tp`` the step runs on
+    the rank's rnn channels; ``place`` gives the rank's axis of each
+    state dim, and a state cut otherwise than the weights (h on dim 1,
+    the conv tail on dim 2) is re-laid to the rank's channels and back
+    (``collectives.relay``: an all-gather, a slice)."""
+    tp = tp_for("rnn")
     if tp is not None:
         x = C.copy_in(x, tp)
     gelu_branch = F.gelu(x @ p["w_gelu"], approximate="tanh")
@@ -142,11 +150,17 @@ def rglru_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
             return y, {"h": h[:, -1].float(), "conv": _conv_tail(p, u)}
         return y, None
     # ---- decode step
-    u_t, conv_state = conv1d_step(p["conv"], u[:, 0], state["conv"])
-    a, b = _rglru_coeffs(p, u_t)
-    h = a.float() * state["h"] + b.float()
+    ax_h = place["h"][1] if place else None
+    ax_c = place["conv"][2] if place else None
+    u_t, conv_state = conv1d_step(p["conv"], u[:, 0],
+                                  C.relay(state["conv"], 2, ax_c, tp))
+    a, b = _rglru_coeffs(p, u_t, tp)
+    h = a.float() * C.relay(state["h"], 1, ax_h, tp) + b.float()
     y = ((h.to(x.dtype) * gelu_branch[:, 0]) @ p["w_out"])[:, None]
-    return y.to(x.dtype), {"h": h, "conv": conv_state}
+    if tp is not None:
+        y = C.reduce_out(y, tp)
+    return y.to(x.dtype), {"h": C.relay(h, 1, tp, ax_h),
+                           "conv": C.relay(conv_state, 2, tp, ax_c)}
 
 
 def rglru_state_spec(cfg: ModelConfig, batch: int, dtype):
@@ -207,84 +221,132 @@ _MLSTM_QUADRATIC_MAX_S = 512
 
 
 def mlstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
-                parallel_fn=None, return_state: bool = False):
+                parallel_fn=None, return_state: bool = False, place=None):
     """mLSTM block.  x: (B,S,d).  Returns (y, new_state).
 
     state=None: full sequence through ``parallel_fn`` (q, k, v, i_pre,
     f_pre) -> h, by default the quadratic form up to S 512 and the
     chunked form above; with ``return_state`` the chunked form also
-    gives the final (C, n, m) for decode.  state=dict: one decode step,
-    x is (B, 1, d)."""
+    gives the final (C, n, m) for decode.  state=dict: one decode step
+    (:func:`_mlstm_decode`), x is (B, 1, d)."""
     b, s, _ = x.shape
-    nh = cfg.num_heads
-    up = p["w_up"].shape[1]
-    dh = up // nh
-    tp = tp_for("ffn") if state is None else None
+    tp = tp_for("ffn")
+    if state is not None:
+        return _mlstm_decode(p, x, cfg, state, tp, place)
     if tp is not None:
         x = C.copy_in(x, tp)
     xin = x @ p["w_up"]
     z = x @ p["w_gate"]
-    if state is None:
-        # under tp, on a rank's part of the up-projection channels (w_up,
-        # w_gate, conv and the rows of wq/wk/wv/wi/wf, w_down).  Where
-        # the rules cut the heads, the reduce-scatter of q, k, v and the
-        # gate pre-activations gives the rank its heads, whose channels
-        # are the rank's channels, so its h meets its own z.  Where they
-        # do not, an all-reduce gives every rank every head, and each
-        # takes its channels of h.
-        cut_heads = tp is not None and tp_for("heads") is not None
-        if tp is None:
-            heads = lambda t: t
-        elif cut_heads:
-            heads = lambda t: C.reduce_split(t, 2, tp)
-        else:
-            heads = lambda t: C.reduce_out(t, tp)
-        c = F.silu(conv1d(p["conv"], xin))
-        q = heads(torch.einsum("bsu,uhd->bshd", c, p["wq"]))
-        k = heads(torch.einsum("bsu,uhd->bshd", c, p["wk"]))
-        v = heads(torch.einsum("bsu,uhd->bshd", xin, p["wv"]))
-        i_pre = heads(torch.einsum("bsu,uh->bsh", c, p["wi"])) + p["bi"]
-        f_pre = heads(torch.einsum("bsu,uh->bsh", c, p["wf"])) + p["bf"]
-        new_state = None
-        if return_state:
-            h, (cmat, n, m) = mlstm_chunked(q, k, v, i_pre, f_pre,
-                                            return_final=True)
-            new_state = {"C": cmat, "n": n, "m": m,
-                         "conv": _conv_tail(p, xin)}
-        else:
-            if parallel_fn is None:
-                parallel_fn = (mlstm_chunked if s > _MLSTM_QUADRATIC_MAX_S
-                               else mlstm_parallel_ref)
-            h = parallel_fn(q, k, v, i_pre, f_pre)
-        h = h.reshape(b, s, -1)
-        if tp is not None and not cut_heads:
-            h = C.split(h, 2, tp)
-        out = (h * F.silu(z)) @ p["w_down"]
-        if tp is not None:
-            out = C.reduce_out(out, tp)
-        return out, new_state
-    # ---- decode step
-    c_t, conv_state = conv1d_step(p["conv"], xin[:, 0], state["conv"])
+    # under tp, on a rank's part of the up-projection channels (w_up,
+    # w_gate, conv and the rows of wq/wk/wv/wi/wf, w_down).  Where
+    # the rules cut the heads, the reduce-scatter of q, k, v and the
+    # gate pre-activations gives the rank its heads, whose channels
+    # are the rank's channels, so its h meets its own z.  Where they
+    # do not, an all-reduce gives every rank every head, and each
+    # takes its channels of h.
+    cut_heads = tp is not None and tp_for("heads") is not None
+    if tp is None:
+        heads = lambda t: t
+    elif cut_heads:
+        heads = lambda t: C.reduce_split(t, 2, tp)
+    else:
+        heads = lambda t: C.reduce_out(t, tp)
+    c = F.silu(conv1d(p["conv"], xin))
+    q = heads(torch.einsum("bsu,uhd->bshd", c, p["wq"]))
+    k = heads(torch.einsum("bsu,uhd->bshd", c, p["wk"]))
+    v = heads(torch.einsum("bsu,uhd->bshd", xin, p["wv"]))
+    i_pre = heads(torch.einsum("bsu,uh->bsh", c, p["wi"])) + p["bi"]
+    f_pre = heads(torch.einsum("bsu,uh->bsh", c, p["wf"])) + p["bf"]
+    new_state = None
+    if return_state:
+        h, (cmat, n, m) = mlstm_chunked(q, k, v, i_pre, f_pre,
+                                        return_final=True)
+        new_state = {"C": cmat, "n": n, "m": m,
+                     "conv": _conv_tail(p, xin)}
+    else:
+        if parallel_fn is None:
+            parallel_fn = (mlstm_chunked if s > _MLSTM_QUADRATIC_MAX_S
+                           else mlstm_parallel_ref)
+        h = parallel_fn(q, k, v, i_pre, f_pre)
+    h = h.reshape(b, s, -1)
+    if tp is not None and not cut_heads:
+        h = C.split(h, 2, tp)
+    out = (h * F.silu(z)) @ p["w_down"]
+    if tp is not None:
+        out = C.reduce_out(out, tp)
+    return out, new_state
+
+
+def _only(have, *dims):
+    """A placement ``have`` (an axis or None a dim) with the cuts on
+    ``dims`` and on the batch dim kept and every other dim whole."""
+    return tuple(a if d == 0 or d in dims else None
+                 for d, a in enumerate(have))
+
+
+def _mlstm_decode(p, x, cfg: ModelConfig, state, tp, place):
+    """One mLSTM decode step; under ``tp`` on the rank's up-projection
+    channels (the rules' "ffn" cut) and with ``place`` (the rank's axis
+    of each state dim; None: the state whole) on the rank's parts of the
+    state.
+
+    The step keeps C cut on its value dim and n on its key dim, as the
+    decode state places them: q and k are summed whole over ``tp`` (all
+    key rows of C), v to the rank's value slice, ``n . q`` is a partial
+    sum all-reduced over n's axis, and ``C . q`` gives the rank's value
+    slice of h, all-gathered into whole heads before the rank takes its
+    up channels for ``z`` and ``w_down``.  Re-laid with a collective
+    where the state's cut is not the step's (``collectives.relay_dims``):
+    the stabilizer m is made whole (the state cuts it by heads where
+    the heads divide), and so is a C or n cut on another dim, and the
+    conv tail is laid on ``tp``'s channels; each goes back to its
+    placement after the step.  The gate biases, cut by heads where the
+    rules cut the heads, are gathered whole."""
+    b = x.shape[0]
+    nh = cfg.num_heads
+    dh = 2 * cfg.d_model // nh
+    pl = place or {}
+    have = {k: pl.get(k, (None,) * state[k].dim()) for k in state}
+    want = {"C": _only(have["C"], 3), "n": _only(have["n"], 2),
+            "m": _only(have["m"]),
+            "conv": (have["conv"][0], None, tp)}
+    st = {k: C.relay_dims(state[k], have[k], want[k]) for k in state}
+    av, ak = want["C"][3], want["n"][2]
+    whole = (lambda t: t) if tp is None else (lambda t: C.all_reduce(t, tp))
+    bias = lambda t: C.relay(t, 0, tp_for("heads"), None)
+
+    xin = x @ p["w_up"]
+    z = x @ p["w_gate"]
+    c_t, conv_state = conv1d_step(p["conv"], xin[:, 0], st["conv"])
     c_t = F.silu(c_t)
-    q = torch.einsum("bu,uhd->bhd", c_t, p["wq"]) * (dh ** -0.5)
-    k = torch.einsum("bu,uhd->bhd", c_t, p["wk"])
+    q = whole(torch.einsum("bu,uhd->bhd", c_t, p["wq"])) * (dh ** -0.5)
+    k = whole(torch.einsum("bu,uhd->bhd", c_t, p["wk"]))
     v = torch.einsum("bu,uhd->bhd", xin[:, 0], p["wv"])
-    i_pre = (c_t @ p["wi"] + p["bi"]).float()
-    f_pre = (c_t @ p["wf"] + p["bf"]).float()
+    v = C.reduce_scatter(v, 2, tp) if tp is not None and av == tp \
+        else C.relay(whole(v), 2, None, av)
+    i_pre = (whole(c_t @ p["wi"]) + bias(p["bi"])).float()
+    f_pre = (whole(c_t @ p["wf"]) + bias(p["bf"])).float()
     lf = F.logsigmoid(f_pre)
-    m_new = torch.maximum(lf + state["m"], i_pre)
-    fg = torch.exp(lf + state["m"] - m_new)[..., None]
+    m_new = torch.maximum(lf + st["m"], i_pre)
+    fg = torch.exp(lf + st["m"] - m_new)[..., None]
     ig = torch.exp(i_pre - m_new)[..., None]
     k32, q32 = k.float(), q.float()
-    cmat = fg[..., None] * state["C"] + ig[..., None] * (
+    cmat = fg[..., None] * st["C"] + ig[..., None] * (
         k32[..., :, None] * v.float()[..., None, :])
-    n = fg * state["n"] + ig * k32
+    n = fg * st["n"] + ig * C.relay(k32, 2, None, ak)
     num = torch.einsum("bhkv,bhk->bhv", cmat, q32)
-    den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, q32)),
-                        torch.exp(-m_new))
-    h = (num / den[..., None]).reshape(b, up).to(x.dtype)
+    nq = torch.einsum("bhk,bhk->bh", n, C.relay(q32, 2, None, ak))
+    if ak is not None:
+        nq = C.all_reduce(nq, ak)
+    den = torch.maximum(torch.abs(nq), torch.exp(-m_new))
+    h = C.relay(num / den[..., None], 2, av, None).reshape(b, nh * dh)
+    h = C.relay(h.to(x.dtype), 1, None, tp)
     out = (h * F.silu(z[:, 0])) @ p["w_down"]
-    return out[:, None], {"C": cmat, "n": n, "m": m_new, "conv": conv_state}
+    if tp is not None:
+        out = C.reduce_out(out, tp)
+    new = {"C": cmat, "n": n, "m": m_new, "conv": conv_state}
+    return out[:, None], {k: C.relay_dims(t, want[k], have[k])
+                          for k, t in new.items()}
 
 
 def mlstm_state_spec(cfg: ModelConfig, batch: int, dtype):
@@ -328,7 +390,7 @@ def _slstm_step(p, carry, gates_t):
 
 def slstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
                 return_state: bool = False, slstm_fn=None,
-                batched_grad: bool = False):
+                batched_grad: bool = False, place=None):
     """sLSTM block.  x: (B,S,d).  Returns (y, new_state).
 
     state=None: the recurrence over the whole sequence, one
@@ -339,10 +401,12 @@ def slstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     signature of the sLSTM kernel instead.  At float32 these compute the
     same function.  Under bf16 the kernel differs: it carries h in
     float32 between steps, the step scans carry it in the activations'
-    dtype, as the JAX package's does.  state=dict: one decode step, x is
-    (B, 1, d)."""
+    dtype, as the JAX package's does.  state=dict: one decode step
+    (:func:`_slstm_decode`), x is (B, 1, d)."""
     b, s, d = x.shape
-    tp = tp_for("heads") if state is None else None
+    tp = tp_for("heads")
+    if state is not None:
+        return _slstm_decode(p, x, cfg, state, tp, place)
     if tp is not None:
         x = C.copy_in(x, tp)
     nh, dh = p["wz"].shape[1:]      # a rank's heads under ``tp``
@@ -352,42 +416,99 @@ def slstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
         torch.einsum("bsd,dhe->bshe", x, p["wf"]) + p["bf"],
         torch.einsum("bsd,dhe->bshe", x, p["wo"]),
     ], dim=-1)  # (B,S,H,D,4)
-    if state is None:
-        if slstm_fn is not None and not return_state:
-            h = slstm_fn(gates, p["rz"], p["ri"], p["rf"], p["ro"])
-            return _slstm_out(p, h.reshape(b, s, nh, dh), tp), None
-        dev = x.device
-        carry = (torch.zeros((b, nh, dh), device=dev),
-                 torch.zeros((b, nh, dh), device=dev),
-                 torch.full((b, nh, dh), -1e30, device=dev),
-                 torch.zeros((b, nh, dh), dtype=x.dtype, device=dev))
-        if batched_grad:
-            carry, hs = slstm_scan(p, gates.transpose(0, 1), carry)
-            h = hs.transpose(0, 1)
-        else:
-            hs = []
-            for t in range(s):
-                carry = _slstm_step(p, carry, gates[:, t])
-                hs.append(carry[3])
-            h = torch.stack(hs, dim=1)
-        if return_state:
-            c, n, m, h_last = carry
-            return _slstm_out(p, h, tp), \
-                {"c": c, "n": n, "m": m, "h": h_last}
-        return _slstm_out(p, h, tp), None
-    carry = (state["c"], state["n"], state["m"], state["h"])
-    new = _slstm_step(p, carry, gates[:, 0])
-    y = (new[3].reshape(b, d) @ p["w_out"])[:, None]
-    return y, {"c": new[0], "n": new[1], "m": new[2], "h": new[3]}
+    if slstm_fn is not None and not return_state:
+        h = slstm_fn(gates, p["rz"], p["ri"], p["rf"], p["ro"])
+        return _slstm_out(p, h.reshape(b, s, nh, dh), tp), None
+    dev = x.device
+    carry = (torch.zeros((b, nh, dh), device=dev),
+             torch.zeros((b, nh, dh), device=dev),
+             torch.full((b, nh, dh), -1e30, device=dev),
+             torch.zeros((b, nh, dh), dtype=x.dtype, device=dev))
+    if batched_grad:
+        carry, hs = slstm_scan(p, gates.transpose(0, 1), carry)
+        h = hs.transpose(0, 1)
+    else:
+        hs = []
+        for t in range(s):
+            carry = _slstm_step(p, carry, gates[:, t])
+            hs.append(carry[3])
+        h = torch.stack(hs, dim=1)
+    if return_state:
+        c, n, m, h_last = carry
+        return _slstm_out(p, h, tp), \
+            {"c": c, "n": n, "m": m, "h": h_last}
+    return _slstm_out(p, h, tp), None
+
+
+def _slstm_decode(p, x, cfg: ModelConfig, state, tp, place):
+    """One sLSTM decode step; with ``place`` (the rank's axis of each dim
+    of c, n, m and h, (B, heads, head_dim); None: the state whole) on
+    the rank's parts of the state.
+
+    The step keeps the state's cut on head_dim: the rank computes the
+    four pre-activations of its head_dim slice of every head, from the
+    whole previous h (the recurrent matvec ``h . R`` contracts over all
+    of head_dim, so h is all-gathered: B x heads x head_dim).  Where the
+    rules leave the heads whole (``tp`` None) the rank takes its slice
+    of the gate weights, the recurrent weights' output rows and the
+    biases; where they cut the heads over ``tp``, the rank computes its
+    heads' pre-activations whole and they are re-laid (all-gathered over
+    the heads, then sliced on head_dim).  A state cut on another dim is
+    made whole for the step and cut back after it
+    (``collectives.relay_dims``).  The output is the rank's part of
+    ``h . w_out`` (its head_dim slice of h against its rows of w_out),
+    all-reduced."""
+    b, _, d = x.shape
+    pl = place or {}
+    have = {k: pl.get(k, (None,) * state[k].dim()) for k in state}
+    want = {k: _only(have[k], 2) for k in state}
+    st = {k: C.relay_dims(state[k], have[k], want[k]) for k in state}
+    h_prev = C.relay(st["h"], 2, want["h"][2], None)
+    ae = want["c"][2]
+    if want["h"][2] != ae:
+        raise NotImplementedError(f"sLSTM state cut {have}")
+    names = (("wz", "rz", None), ("wi", "ri", "bi"), ("wf", "rf", "bf"),
+             ("wo", "ro", None))
+    # the rank's rows of a weight cut on head_dim (dim ``e``) over ``ax``
+    rows = lambda name, e, ax: C.relay(p[name], e, None, ax)
+
+    def pre(w, r, bias, ax, h_in):
+        g = torch.einsum("bd,dhe->bhe", x[:, 0], rows(w, 2, ax))
+        if bias is not None:
+            g = g + rows(bias, 1, ax)
+        return g + torch.einsum("bhd,hed->bhe", h_in, rows(r, 1, ax))
+    if tp is None:
+        pres = [pre(w, r, bias, ae, h_prev) for w, r, bias in names]
+    else:
+        h_loc = C.local_slice(h_prev, 1, tp)
+        pres = torch.stack([pre(w, r, bias, None, h_loc)
+                            for w, r, bias in names], dim=-1)
+        pres = C.relay(C.relay(pres, 1, tp, None), 2, None, ae).unbind(-1)
+    c, n, m, h = step_core(*pres, st["c"], st["n"], st["m"])
+    h = h.to(state["h"].dtype)
+    if ae is None:
+        y = h.reshape(b, d) @ p["w_out"]
+    else:
+        # the rank's head_dim slice of every head meets its rows of
+        # w_out, and the partial outputs are summed
+        w_out = C.local_slice(p["w_out"].reshape(h.shape[1], -1, d), 1, ae)
+        y = C.reduce_out(torch.einsum("bhe,hed->bd", h, w_out), ae)
+    y = y[:, None]
+    new = {"c": c, "n": n, "m": m, "h": h}
+    return y, {k: C.relay_dims(t, want[k], have[k]) for k, t in new.items()}
 
 
 def _slstm_out(p, h, tp):
-    """h (B, S, heads, D) -> the block's output through w_out; under
-    ``tp`` the ranks' heads are gathered first (w_out is replicated)."""
-    if tp is not None:
-        h = C.gather(h, 2, tp)
+    """h (B, S, heads, D) -> the block's output through w_out.  Under
+    ``tp`` the rank's heads meet their rows of w_out (replicated, and
+    taken through ``split``, whose backward all-gathers the rows'
+    gradients into the whole one) and the partial outputs are summed."""
     b, s = h.shape[:2]
-    return h.reshape(b, s, -1) @ p["w_out"]
+    if tp is None:
+        return h.reshape(b, s, -1) @ p["w_out"]
+    w = p["w_out"]
+    rows = C.split(w.reshape(h.shape[2] * tp.size, -1, w.shape[-1]), 0, tp)
+    return C.reduce_out(torch.einsum("bshe,hed->bsd", h, rows), tp)
 
 
 def slstm_state_spec(cfg: ModelConfig, batch: int, dtype):

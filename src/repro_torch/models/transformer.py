@@ -38,7 +38,8 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..kernels.ops import kernel_opts
 from ..parallelism import collectives as C
-from ..parallelism.context import bound_rules, bound_use, shard, tp_for, use
+from ..parallelism.context import (bound_rules, bound_use, current_layout,
+                                   placed, shard, tp_for, use)
 from .config import ATTN, MLSTM, RECURRENT, RGLRU, SLSTM, SWA, ModelConfig
 from .layers import (attention, attention_spec, attn_cache_spec, ffn,
                      ffn_spec, rmsnorm, rmsnorm_spec)
@@ -154,30 +155,57 @@ def init_decode_state(cfg: ModelConfig, batch: int, length: int,
 
 # ---------------------------------------------------------------- forward
 
+def _state_rows(h, cache, place):
+    """The axis that cuts a decode state's rows where ``h`` holds every
+    row (the rules leave the batch whole and the state's placement cuts
+    it), else None."""
+    if place is None:
+        return None
+    name = sorted(place)[0]
+    ax, n = place[name][0], cache[name].shape[0]
+    if h.shape[0] == n:
+        return None
+    if ax is None or h.shape[0] != n * ax.size:
+        raise NotImplementedError(
+            f"{h.shape[0]} rows of activations against {n} rows of the "
+            f"decode state cut over {ax}")
+    return ax
+
+
 def _block_apply(p, x, *, kind, cfg: ModelConfig, cache=None, positions=None,
-                 pos=None, opts=None, prefill=False):
+                 pos=None, opts=None, prefill=False, place=None):
+    """One block.  In decode, ``place`` gives the rank's axis of each dim
+    of each state leaf (None: nothing cut); where the state's rows are
+    cut and the activations' are not, the mixer runs on the rank's rows
+    and its output rows are all-gathered."""
     _check_kind(kind)
     opts = opts or {}
     h = rmsnorm(p["mixer"]["norm"], x, cfg.norm_eps)
+    rows = _state_rows(h, cache, place)
+    if rows is not None:
+        h = C.local_slice(h, 0, rows)
     if kind == RGLRU:
         y, nc = rglru_block(p["mixer"], h, cfg, state=cache,
                             scan_fn=opts.get("rglru_scan"),
-                            return_state=prefill)
+                            return_state=prefill, place=place)
     elif kind == MLSTM:
         y, nc = mlstm_block(p["mixer"], h, cfg, state=cache,
                             parallel_fn=opts.get("mlstm_fn"),
-                            return_state=prefill)
+                            return_state=prefill, place=place)
     elif kind == SLSTM:
         y, nc = slstm_block(p["mixer"], h, cfg, state=cache,
                             return_state=prefill,
                             slstm_fn=opts.get("slstm_fn"),
                             batched_grad=opts.get("slstm_batched_grad",
-                                                  False))
+                                                  False), place=place)
     else:
         window = cfg.window_size if kind == SWA else 0
         y, nc = attention(p["mixer"], h, cfg, window=window, cache=cache,
                           positions=positions, pos=pos,
-                          attn_fn=opts.get("attn_fn"), return_cache=prefill)
+                          attn_fn=opts.get("attn_fn"), return_cache=prefill,
+                          place=None if place is None else place["k"])
+    if rows is not None:
+        y = C.all_gather(y, 0, rows)
     x = x + y
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in p:
@@ -190,15 +218,36 @@ def _block_apply(p, x, *, kind, cfg: ModelConfig, cache=None, positions=None,
     return x, nc, aux
 
 
+def _block_place(layout, stacked: bool):
+    """{leaf: the rank's axis of each dim of one layer's leaf} of a
+    block's state ``layout`` (placements, with the layer dim first where
+    ``stacked``); None where nothing is cut."""
+    if layout is None:
+        return None
+    out = {}
+    for name, pl in layout.items():
+        if stacked:
+            if pl[0] is not None:
+                raise NotImplementedError(
+                    f"a decode state cut on its layer dim ({name}: {pl})")
+            pl = pl[1:]
+        out[name] = placed(pl)
+    return out if any(a is not None for v in out.values() for a in v) \
+        else None
+
+
 def _run_groups(params, cfg: ModelConfig, x, *, caches=None, positions=None,
-                pos=None, opts=None, remat=False, prefill=False):
+                pos=None, opts=None, remat=False, prefill=False,
+                layout=None):
     """Run all layer groups.  Returns (x, new_caches, aux).
 
     prefill=True: caches are None on input but every block *returns* its
     decode-ready state.  With caches (decode) an attention block writes
     into its slot of the (stacked) KV cache in place, so the input cache
     is returned as the new one; a recurrent block returns new state
-    tensors, stacked here like the params.
+    tensors, stacked here like the params.  ``layout``: the placements
+    of the caches' leaves, where each is the rank's part (decode under a
+    rules plan).
 
     remat=True recomputes activations in the backward pass at the JAX
     package's granularity: one repeat of the pattern in a scanned group,
@@ -209,6 +258,7 @@ def _run_groups(params, cfg: ModelConfig, x, *, caches=None, positions=None,
     for gi, (mode, pattern, n) in enumerate(cfg.layer_plan()):
         gparams = params["groups"][gi]
         gcaches = caches[gi] if caches is not None else None
+        glayout = layout[gi] if layout is not None else None
         reps = 1 if mode == "unroll" else n
         keyed = [(f"pos{i}_{kind}", kind) for i, kind in enumerate(pattern)]
         units = [[k] for k in keyed] if mode == "unroll" else [keyed]
@@ -220,16 +270,19 @@ def _run_groups(params, cfg: ModelConfig, x, *, caches=None, positions=None,
                 # bound now: a remat recompute calls run after the loop
                 # has moved on to a later group, and in the backward
                 def run(x_, unit=unit, at=at, rep=rep, gparams=gparams,
-                        gcaches=gcaches, take=take):
+                        gcaches=gcaches, glayout=glayout, take=take):
                     ncs, aux_ = {}, 0.0
                     with rules():
                         for key, kind in unit:
                             c = (tree_map(at, gcaches[key])
                                  if gcaches is not None else None)
+                            place = _block_place(
+                                glayout and glayout[key], mode == "scan")
                             x_, ncs[key], a = _block_apply(
                                 take(gparams[key], rep), x_, kind=kind,
                                 cfg=cfg, cache=c, positions=positions,
-                                pos=pos, opts=opts, prefill=prefill)
+                                pos=pos, opts=opts, prefill=prefill,
+                                place=place)
                             aux_ = aux_ + a
                     return x_, ncs, aux_
                 if remat:
@@ -333,12 +386,38 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *,
                 opts: Optional[dict] = None):
     """One decode step.  tokens: (B, 1) int; state from
     ``init_decode_state`` (its caches are updated in place).  Returns
-    (logits (B,1,V), new_state)."""
+    (logits (B,1,V), new_state).
+
+    Under a rules plan it runs inside ``BuiltJob.running(params,
+    layout)``: ``tokens`` are the rank's rows under the rules' batch
+    axes, each state leaf is the rank's part under its placement in
+    ``layout`` (``launch.mesh.cache_shardings``), the logits are the
+    rank's rows and vocab part, and the new state keeps the placements.
+    ``pos`` is then one scalar for every row."""
     opts = _resolve_opts(params, opts)
     pos = state["pos"]
-    x = params["embed"][tokens.long()]
+    x = _embed_tokens(use(params["embed"]), tokens)
+    layout = current_layout()
     x, new_caches, _ = _run_groups(
-        params, cfg, x, caches=state["layers"], pos=pos, opts=opts)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        params, cfg, x, caches=state["layers"], pos=pos, opts=opts,
+        layout=None if layout is None else layout["layers"])
+    x = rmsnorm(use(params["final_norm"]), x, cfg.norm_eps)
     logits = unembed(params, cfg, x)
     return logits, {"layers": new_caches, "pos": pos + 1}
+
+
+def greedy_tokens(logits):
+    """(B, 1) int32: the index of each row's largest last logit, ties to
+    the lowest index as ``jnp.argmax`` breaks them.  Where the rules cut
+    the vocab, each rank's (max, index) pair is all-gathered over the
+    tensor-parallel axis and the first rank holding the row's max wins."""
+    last = logits[:, -1]
+    idx = torch.argmax(last, dim=-1, keepdim=True)
+    tp = tp_for("vocab")
+    if tp is not None:
+        val = C.all_gather(last.gather(-1, idx), 1, tp)      # (B, ranks)
+        idx = C.all_gather(idx + tp.rank * last.shape[-1], 1, tp)
+        best = val.amax(-1, keepdim=True)
+        idx = torch.where(val == best, idx, torch.iinfo(idx.dtype).max) \
+            .amin(-1, keepdim=True)
+    return idx.to(torch.int32)

@@ -59,11 +59,11 @@ from ..optim.adamw import AdamWConfig, adamw_update, init_opt_state
 from ..train.steps import _grads, lm_loss, make_train_step
 from . import collectives as C
 from .base import Plan
-from .context import axis_rules, param_gather
+from .context import axis_rules, param_gather, state_layout
 from .fsdp import ParamGather
 from .pipeline import pipeline_grads
-from .shardings import (axis_names, cut_tree, cuts, param_pspec,
-                        param_shardings)
+from .shardings import (axis_names, cut, cut_tree, cuts, param_pspec,
+                        param_shardings, placement_leaves)
 
 SINGLE_DEVICE_TECHNIQUES = ("ddp", "remat-offload")
 # the logical axes whose cut over "model" the model computes on (tensor
@@ -228,13 +228,33 @@ class BuiltJob:
         return stack
 
     @contextlib.contextmanager
-    def running(self, params):
+    def running(self, params, layout=None):
         """This rank's context for the model on its part of ``params``:
         the plan's axis rules and the just-in-time gathers.  A prefill of
-        a rules plan is ``prefill_forward`` inside it."""
+        a rules plan is ``prefill_forward`` inside it, a decode step
+        ``decode_step`` inside it with ``layout``, the placements of the
+        decode state's leaves (``launch.mesh.cache_shardings``), under
+        which each leaf is the rank's part (:meth:`shard_state`)."""
+        if layout is not None:
+            self.flatten_layout(layout)
         with axis_rules(self.rules, self.mesh, self.sizes), \
-                self._gathering(_leaves(params)):
+                state_layout(layout), self._gathering(_leaves(params)):
             yield
+
+    def flatten_layout(self, layout) -> None:
+        """Make each tuple of axes that ``layout`` names one axis of the
+        mesh (in flatten order, the same on every rank); a tuple made
+        before is kept."""
+        for _, pl in placement_leaves(layout):
+            for m in pl:
+                if isinstance(m, tuple):
+                    self.mesh.flatten(m)
+
+    def shard_state(self, state, layout):
+        """This rank's part of a whole decode state under ``layout``
+        (``launch.mesh.cache_shardings``; ``pos`` stays as it is)."""
+        self.flatten_layout(layout)
+        return tree_map(lambda t, pl: cut(t, pl, self.mesh), state, layout)
 
     def _spmd_step(self, params, opt_state, batch):
         def loss(leaves, batch):

@@ -16,6 +16,10 @@ they do to a tensor that every rank of the axis holds whole
 - :func:`reduce_split` forward the rank's slice of the sum, backward
   all-gather: ``split(reduce_out(x))`` in one collective.
 
+:func:`relay` and :func:`relay_dims` move a tensor from one cut to
+another (decode re-lays small activations and recurrent states with
+them; they have no backward rule).
+
 Each rank's part is the contiguous ``1/size`` slice at its index along
 the axis, as the reference's mesh lays out a sharded dim.
 
@@ -81,6 +85,25 @@ def all_reduce(x, axis: Axis, op=dist.ReduceOp.SUM):
     y = x.clone()
     dist.all_reduce(y, op=op, group=axis.group)
     return y
+
+
+def relay(x, dim: int, have, want):
+    """``x``, cut on ``dim`` over the axis ``have`` (None: whole), as cut
+    over ``want``: an all-gather where a cut goes, the rank's slice (a
+    view) where one comes, nothing where they are the same."""
+    if have == want:
+        return x
+    if have is not None:
+        x = all_gather(x, dim, have)
+    return x if want is None else local_slice(x, dim, want)
+
+
+def relay_dims(x, have, want):
+    """:func:`relay` on every dim: ``have`` and ``want`` give an axis or
+    None a dim."""
+    for d, (a, w) in enumerate(zip(have, want)):
+        x = relay(x, d, a, w)
+    return x
 
 
 class _CopyIn(torch.autograd.Function):

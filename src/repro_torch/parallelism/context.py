@@ -29,6 +29,12 @@ scanned layer group): the tree itself (its repeat ``r``), or, under
 ``param_gather`` (an fsdp step; a rules plan's step or prefill), the
 unit made whole just in time along the dims cut over an axis other than
 ``"model"`` (:mod:`~repro_torch.parallelism.fsdp`).
+
+``state_layout`` holds the per-dim placements of a decode state's
+leaves (``launch.mesh.cache_shardings``) while a rules plan decodes:
+each leaf is the rank's part under its placement, and ``placed`` turns
+a placement into the rank's :class:`~repro_torch.parallelism.dist.Axis`
+of each dim (None where the dim is whole).
 """
 from __future__ import annotations
 
@@ -68,6 +74,35 @@ def axis_rules(rules: dict, mesh, sizes: Optional[Dict[str, int]] = None):
         yield
     finally:
         _state.rules, _state.mesh, _state.sizes = prev
+
+
+@contextlib.contextmanager
+def state_layout(layout):
+    """The placements of the decode state's leaves, a tree beside the
+    state (``launch.mesh.cache_shardings``' first tree; None: every leaf
+    whole, or cut as the rules cut the block's weights)."""
+    prev = current_layout()
+    _state.layout = layout
+    try:
+        yield
+    finally:
+        _state.layout = prev
+
+
+def current_layout():
+    return getattr(_state, "layout", None)
+
+
+def placed(placement) -> Tuple:
+    """The rank's axis of each dim of a placement (a mesh axis, a tuple
+    of axes or None per dim) under the active mesh: None where the dim
+    is whole, and where its axes hold one rank."""
+    mesh = current_mesh()
+    out = []
+    for m in placement:
+        ax = mesh.axis(m) if m is not None else None
+        out.append(ax if ax is not None and ax.size > 1 else None)
+    return tuple(out)
 
 
 def bound_rules():

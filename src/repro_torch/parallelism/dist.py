@@ -150,9 +150,11 @@ class Mesh:
             for name, n in mesh_axes}
         self.coords = tuple(self.axes[a].rank for a in names)
         for axes in flat:
-            self._flatten(tuple(axes))
+            self.flatten(tuple(axes))
 
-    def _flatten(self, axes: Tuple[str, ...]) -> None:
+    def flatten(self, axes: Tuple[str, ...]) -> None:
+        """Make the tuple ``axes`` one axis; every rank of the job calls
+        it at the same point of its program."""
         if len(axes) == 1 or axes in self.axes:
             return
         pos = [self.names.index(a) for a in axes]

@@ -74,6 +74,20 @@ def axis_names(m) -> Tuple[str, ...]:
     return tuple(m) if isinstance(m, (tuple, list)) else (m,)
 
 
+def placement_leaves(layout, prefix=()):
+    """(path, placement) of every placement in a tree of them (dicts and
+    lists; a tuple is a placement), in ``tree_leaves_with_paths``
+    order."""
+    if isinstance(layout, dict):
+        for k in sorted(layout):
+            yield from placement_leaves(layout[k], prefix + (str(k),))
+    elif isinstance(layout, list):
+        for i, v in enumerate(layout):
+            yield from placement_leaves(v, prefix + (str(i),))
+    else:
+        yield prefix, layout
+
+
 def cuts(pspec: Tuple) -> List[Tuple[int, object]]:
     """(dim, mesh axis or tuple of axes) of every dim the placement cuts."""
     return [(i, m) for i, m in enumerate(pspec) if m is not None]

@@ -4,7 +4,7 @@
     PYTHONPATH=src python -m repro_torch.testing.parallel_check ARCH \\
         --ranks N [--device cpu|cuda]
     PYTHONPATH=src python -m repro_torch.testing.parallel_check ARCH \\
-        --mesh 2x2|2x1x2 [--device cpu|cuda]
+        --mesh 2x2|2x1x2 [--decode] [--device cpu|cuda]
 
 spawns N ranks (gloo on the CPU, NCCL on CUDA, where rank r takes card
 r; NCCL refuses two ranks on one card) and, for every technique in the
@@ -17,7 +17,11 @@ peak bytes in the step and in the checkpoint's gather
 non-zero on any ``FAIL``.  With ``--mesh`` it runs the dry run's 2-D
 (or 3-D) rules plan on 4 ranks instead (:func:`check_rules`): one train
 step without and with remat, and a prefill whose every rank's last
-logits and state parts are held against the one-device prefill.
+logits and state parts are held against the one-device prefill.  With
+``--mesh`` and ``--decode`` (:func:`check_decode`) it runs greedy decode
+steps under that plan from a random state placed by
+``launch.mesh.cache_shardings`` under each cache policy, against the
+one-device ``decode_step``.
 
 :func:`technique_steps` is the per-rank work of the check, and
 :func:`segments` trains checkpointed segments under changing
@@ -29,6 +33,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from typing import Optional
 
 DEFAULT_TOL = 2e-2
 
@@ -182,18 +187,20 @@ MESHES = {"2x2": (("data", 2), ("model", 2)),
 WARM_STEPS = 3
 
 
-def rules_plan(cfg, mesh_axes, remat: bool = False):
+def rules_plan(cfg, mesh_axes, remat: bool = False,
+               rules_override: Optional[dict] = None):
     """The dry run's layout on a small mesh: the production parameter
     rules at ``mesh_axes``' sizes (``launch.mesh``; "embed" over data,
     the heads, ffn, experts, vocab and rnn that divide over model) and
-    the batch over ("pod",) "data"."""
+    the batch over ("pod",) "data", then ``rules_override``."""
     import math
 
     from ..launch.mesh import batch_axes, production_param_rules
     from ..parallelism.base import Plan
     multi_pod = "pod" in dict(mesh_axes)
     prules = production_param_rules(cfg, mesh_axes, multi_pod)
-    rules = {**prules, "batch": batch_axes(multi_pod), "seq": None}
+    rules = {**prules, "batch": batch_axes(multi_pod), "seq": None,
+             **(rules_override or {})}
     return Plan("rules", math.prod(n for _, n in mesh_axes),
                 tuple(mesh_axes), rules, param_policy="rules", remat=remat)
 
@@ -284,24 +291,170 @@ def rules_runs_on(group, cfg, opt_cfg, params_np, batch_np, meshes):
             for name, axes in meshes.items()}
 
 
-def expected_part(full, part_shape, coords, mesh_axes, batch_dim):
-    """The slice of a one-device prefill output ``full`` that a rank at
-    ``coords`` holds: its rows along ``batch_dim`` (the ("pod", "data")
-    index, row-major) and, on a dim the rank holds a ``model``-th of, its
-    model index's part."""
+def expected_part(full, part_shape, coords, mesh_axes, batch_dim,
+                  placement=None):
+    """The slice of a one-device output ``full`` that a rank at
+    ``coords`` holds.  Without ``placement``: its rows along
+    ``batch_dim`` (the ("pod", "data") index, row-major) and, on a dim
+    the rank holds a ``model``-th of, its model index's part.  With
+    ``placement`` (a mesh axis, a tuple of axes or None a dim): on each
+    cut dim, its part at its row-major index over the dim's axes."""
     import numpy as np
+
+    from ..parallelism.shardings import axis_names
     sizes = dict(mesh_axes)
-    rows = [a for a in ("pod", "data") if a in sizes]
-    b_index = int(np.ravel_multi_index([coords[a] for a in rows],
-                                       [sizes[a] for a in rows]))
+    index = lambda axes: int(np.ravel_multi_index(
+        [coords[a] for a in axes], [sizes[a] for a in axes]))
     at = []
     for d, (n, k) in enumerate(zip(full.shape, part_shape)):
         if n == k:
             at.append(slice(None))
             continue
-        idx = b_index if d == batch_dim else coords["model"]
+        if placement is not None:
+            idx = index(axis_names(placement[d]))
+        elif d == batch_dim:
+            idx = index([a for a in ("pod", "data") if a in sizes])
+        else:
+            idx = coords["model"]
         at.append(slice(idx * k, (idx + 1) * k))
     return full[tuple(at)]
+
+
+# greedy decode steps of a decode check, each feeding back its argmax
+DECODE_STEPS = 3
+# check_decode's decode state: its length, first position and seed
+DECODE_LEN, DECODE_POS, DECODE_SEED = 64, 41, 7
+
+
+def random_decode_state(cfg, batch: int, length: int, seed: int = 0):
+    """{path: array} of a decode state's layers (the layout of
+    ``init_decode_state``) in fp32, drawn from ``seed``: the KV caches
+    and the recurrent states standard normal, every stabilizer ``m``
+    finite (uniform in [-2, 2]) and the sLSTM's normalizer ``n``
+    positive."""
+    import numpy as np
+
+    from ..models.params import tree_leaves_with_paths
+    from ..models.transformer import decode_state_spec
+    rng = np.random.RandomState(seed)
+    out = {}
+    for path, s in tree_leaves_with_paths(
+            decode_state_spec(cfg, batch, length)["layers"]):
+        shape = tuple(s.shape)
+        if path[-1] == "m":
+            a = rng.uniform(-2.0, 2.0, shape)
+        elif path[-1] == "n" and "slstm" in path[-2]:
+            a = 1.0 + np.abs(rng.standard_normal(shape))
+        else:
+            a = rng.standard_normal(shape)
+        out["/".join(("layers",) + path)] = a.astype(np.float32)
+    return out
+
+
+def decode_case(policy: str, tokens, state_np, pos: int, length: int,
+                rules_override: Optional[dict] = None):
+    """One case of :func:`decode_runs`: the state's ``policy``
+    (``launch.mesh.cache_shardings``), the first tokens (B, 1), the
+    whole state of KV caches of ``length`` (:func:`random_decode_state`)
+    at ``pos``, and the rules over :func:`rules_plan`'s (``{"batch":
+    None}``: every rank runs every row)."""
+    return {"policy": policy, "tokens": tokens, "state": state_np,
+            "pos": pos, "length": length, "rules": rules_override}
+
+
+def _decode_state(state_np, pos: int, device):
+    """The decode state tree of :func:`random_decode_state`'s arrays."""
+    import torch
+
+    from ..models.params import params_from_numpy
+    tree = params_from_numpy(state_np, device=device)
+    tree["pos"] = torch.tensor(pos, dtype=torch.int32, device=device)
+    return tree
+
+
+def greedy_decode(cfg, params, tokens, state, steps: int, job=None,
+                  layout=None):
+    """``steps`` greedy decode steps of ``decode_step`` from ``tokens``
+    (B, 1) and ``state`` (updated in place), each feeding back
+    ``greedy_tokens``; inside ``job.running(params, layout)`` where a
+    job is given.  Returns ([(logits, tokens)] a step, the last
+    state)."""
+    import contextlib
+
+    import torch
+
+    from ..models.transformer import decode_step, greedy_tokens
+    ctx = contextlib.nullcontext() if job is None \
+        else job.running(params, layout)
+    out = []
+    with torch.no_grad(), ctx:
+        for _ in range(steps):
+            logits, state = decode_step(params, cfg, tokens, state, opts={})
+            tokens = greedy_tokens(logits)
+            out.append((logits, tokens))
+    return out, state
+
+
+def decode_runs(group, cfg, params_np, cases, mesh_axes):
+    """Per rank, for each case of ``cases`` (name -> :func:`decode_case`):
+    under :func:`rules_plan` on ``mesh_axes``, the rank's part of the
+    whole state under the case's placements
+    (``BuiltJob.shard_state``), its rows of the tokens, and
+    :data:`DECODE_STEPS` greedy steps of ``decode_step`` inside
+    ``running(params, layout)``, each feeding back ``greedy_tokens``.
+    Returns, on rank 0, each case's parts of every rank: its mesh
+    coordinates, the placements of the logits' rows and vocab and of
+    each state leaf, each step's logits and tokens, and its part of each
+    state leaf after the last step (slash-joined path) with the final
+    ``pos``."""
+    import torch
+    import torch.distributed as dist
+
+    from ..launch.mesh import cache_shardings
+    from ..models.config import InputShape
+    from ..models.params import params_from_numpy, tree_leaves_with_paths
+    from ..optim.adamw import AdamWConfig
+    from ..parallelism.build import BuiltJob
+    from ..parallelism.shardings import placement_leaves
+    multi_pod = "pod" in dict(mesh_axes)
+    out = {}
+    for name, case in cases.items():
+        b = case["tokens"].shape[0]
+        layout, _ = cache_shardings(
+            cfg, InputShape("decode", case["length"], b, "decode"),
+            mesh_axes, multi_pod, policy=case["policy"])
+        job = BuiltJob(cfg, rules_plan(cfg, mesh_axes,
+                                       rules_override=case["rules"]),
+                       AdamWConfig(), group=group)
+        params = job.shard(params_from_numpy(params_np, device=group.device))
+        state = job.shard_state(_decode_state(case["state"], case["pos"],
+                                              group.device), layout)
+        tok = job.place_batch({"tokens": torch.as_tensor(
+            case["tokens"])})["tokens"]
+        steps, state = greedy_decode(cfg, params, tok, state, DECODE_STEPS,
+                                     job, layout)
+        mine = {"coords": dict(zip(job.mesh.names, job.mesh.coords)),
+                "logits_placement": (job.rules.get("batch"), None,
+                                     job.rules.get("vocab")),
+                "layout": {"/".join(p): pl for p, pl in
+                           placement_leaves(layout["layers"])},
+                "steps": [{"logits": lg.cpu().numpy(),
+                           "tokens": t.cpu().numpy()} for lg, t in steps],
+                "pos": int(state["pos"]),
+                "state": {"/".join(p): t.cpu().numpy() for p, t in
+                          tree_leaves_with_paths(state["layers"])}}
+        parts = [None] * group.size if group.rank == 0 else None
+        dist.gather_object(mine, parts, dst=0)
+        if group.rank == 0:
+            out[name] = parts
+    return out
+
+
+def decode_runs_on(group, cfg, params_np, cases, meshes):
+    """:func:`decode_runs` on each mesh of ``meshes`` (name -> mesh axes)
+    in one group; results by mesh name."""
+    return {name: decode_runs(group, cfg, params_np, cases, axes)
+            for name, axes in meshes.items()}
 
 
 def check_rules(arch_id: str = "h2o-danube-3-4b", mesh: str = "2x2",
@@ -391,6 +544,99 @@ def check_rules(arch_id: str = "h2o-danube-3-4b", mesh: str = "2x2",
     return results
 
 
+def decode_cases(cfg, batch: int = 8):
+    """:func:`check_decode`'s cases: both cache policies at ``batch`` and,
+    for a long-context arch, at B 1 with the batch left whole; an MoE
+    arch also takes the optimized preset's decode overrides."""
+    import numpy as np
+
+    from ..launch.dryrun import optimized_overrides
+    from ..models.config import INPUT_SHAPES
+    cases = {}
+    for b in (batch, 1) if cfg.long_context else (batch,):
+        state = random_decode_state(cfg, b, DECODE_LEN, DECODE_SEED + b)
+        tokens = np.random.RandomState(DECODE_SEED + 100 + b).randint(
+            0, cfg.vocab_size, (b, 1)).astype(np.int32)
+        rules = None if b == batch else {"batch": None}
+        for policy in ("heads", "seq"):
+            cases[f"{policy}-b{b}"] = decode_case(
+                policy, tokens, state, DECODE_POS, DECODE_LEN, rules)
+        if cfg.is_moe and b == batch:
+            kw = optimized_overrides(cfg, INPUT_SHAPES["decode_32k"])
+            cases[f"optimized-b{b}"] = decode_case(
+                kw.get("cache_policy", "heads"), tokens, state, DECODE_POS,
+                DECODE_LEN, kw.get("rules_override"))
+    return cases
+
+
+def check_decode(arch_id: str = "h2o-danube-3-4b", mesh: str = "2x2",
+                 device: str = "cpu", tol: float = DEFAULT_TOL):
+    """Decode under a rules plan on ``mesh`` (:data:`MESHES`) against the
+    port's one device, for each of :func:`decode_cases`:
+    :data:`DECODE_STEPS` greedy steps from a random state, each step's
+    tokens equal and every rank's part of its logits and, after the
+    last step, of each state leaf within ``tol`` of the output's
+    largest value; one result a case."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from ..configs import get_config
+    from ..models.params import params_from_numpy, tree_leaves_with_paths
+    from ..optim.adamw import AdamWConfig
+    from ..parallelism.build import BuiltJob
+    from ..parallelism.dist import spawn
+    from ..parallelism.techniques import DDP
+
+    mesh_axes = MESHES[mesh]
+    cfg = get_config(arch_id).reduced(num_layers=4)
+    base = BuiltJob(cfg, DDP().plan(cfg, 1), AdamWConfig(), device="cpu")
+    params, _ = base.init(42)
+    params_np = {"/".join(p): t.numpy().copy()
+                 for p, t in tree_leaves_with_paths(params)}
+    cases = decode_cases(cfg)
+    devices = [f"cuda:{r}" if device == "cuda" else "cpu"
+               for r in range(4)]
+    t0 = time.perf_counter()
+    got = spawn(decode_runs, devices, cfg, params_np, cases, mesh_axes)
+    spawn_s = time.perf_counter() - t0
+    worst = lambda part, want: float(np.max(np.abs(part - want))) / max(
+        float(np.max(np.abs(want))), 1e-30)
+    results = []
+    for name, case in cases.items():
+        steps, state = greedy_decode(
+            cfg, params_from_numpy(params_np, device="cpu"),
+            torch.as_tensor(case["tokens"]),
+            _decode_state(case["state"], case["pos"], "cpu"), DECODE_STEPS)
+        full = {"/".join(p): t.numpy() for p, t in
+                tree_leaves_with_paths(state["layers"])}
+        same, diff = True, 0.0
+        for part in got[name]:
+            pl = part["logits_placement"]
+            for (logits, tokens), mine in zip(steps, part["steps"]):
+                same &= bool(np.array_equal(mine["tokens"], expected_part(
+                    tokens.numpy(), mine["tokens"].shape, part["coords"],
+                    mesh_axes, 0, pl[:2])))
+                diff = max(diff, worst(mine["logits"], expected_part(
+                    logits.numpy(), mine["logits"].shape, part["coords"],
+                    mesh_axes, 0, pl)))
+            for k, v in part["state"].items():
+                diff = max(diff, worst(v, expected_part(
+                    full[k], v.shape, part["coords"], mesh_axes, None,
+                    part["layout"][k])))
+        ok = same and diff < tol
+        print(f"[decode {mesh} {name}] policy={case['policy']} "
+              f"rules={case['rules']} tokens_equal={same} "
+              f"max_rel_diff={diff:.2e} {'OK' if ok else 'FAIL'}",
+              flush=True)
+        results.append({"check": f"decode {mesh} {name}", "ok": ok,
+                        "tokens_equal": same, "max_rel_diff": diff})
+    print(f"[decode {mesh}] {len(cases)} cases on {len(devices)} ranks in "
+          f"{spawn_s:.1f} s (spawn included)", flush=True)
+    return results
+
+
 def check(arch_id: str = "h2o-danube-3-4b", ranks: int = 2,
           device: str = "cpu", tol: float = DEFAULT_TOL):
     """The reference's contract on ``ranks`` ranks; returns one result a
@@ -461,6 +707,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", choices=sorted(MESHES),
                     help="a rules plan on this mesh (4 ranks) in place of "
                          "the techniques at --ranks")
+    ap.add_argument("--decode", action="store_true",
+                    help="with --mesh: greedy decode steps under the rules "
+                         "plan in place of the train step and prefill")
     ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
     ap.add_argument("--tol", type=float, default=DEFAULT_TOL)
     args = ap.parse_args(argv)
@@ -471,7 +720,11 @@ def main(argv=None) -> int:
             print(f"parallel_check: {ranks} ranks need as many cards "
                   f"(found {torch.cuda.device_count()})", file=sys.stderr)
             return 2
-    if args.mesh:
+    if args.decode and not args.mesh:
+        ap.error("--decode needs --mesh")
+    if args.decode:
+        results = check_decode(args.arch, args.mesh, args.device, args.tol)
+    elif args.mesh:
         results = check_rules(args.arch, args.mesh, args.device, args.tol)
     else:
         results = check(args.arch, args.ranks, args.device, args.tol)

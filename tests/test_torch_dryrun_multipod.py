@@ -1,8 +1,8 @@
 """The port's dry run at (pod 2, data 2, model 2): rank 0's flops against
 the reference's loop-aware HLO analysis (tests/_torch_dryrun.py) for
-train and prefill of reduced h2o-danube-3-4b, olmoe-1b-7b and
-recurrentgemma-2b at S 64 (B 32, where the batch is cut and they agree
-within 5%: tests/test_torch_dryrun_multipod_b32.py).
+train and prefill of reduced h2o-danube-3-4b, olmoe-1b-7b,
+recurrentgemma-2b and xlstm-125m at S 64 (B 32, where the batch is cut
+and they agree within 5%: tests/test_torch_dryrun_multipod_b32.py).
 
 At B 16 they depart (ROADMAP C10): ``activation_rules`` cuts the
 batch only when it divides over 32 ranks, so the rule is None and the
@@ -20,7 +20,9 @@ B16_RATIO = {("h2o-danube-3-4b", "train"): 1.8242,
              ("olmoe-1b-7b", "train"): 1.5670,
              ("olmoe-1b-7b", "prefill"): 1.3009,
              ("recurrentgemma-2b", "train"): 1.9218,
-             ("recurrentgemma-2b", "prefill"): 1.9768}
+             ("recurrentgemma-2b", "prefill"): 1.9768,
+             ("xlstm-125m", "train"): 1.7128,
+             ("xlstm-125m", "prefill"): 1.6876}
 
 
 @pytest.fixture(scope="module")
