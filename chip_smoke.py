@@ -74,9 +74,14 @@ cuda`` on four cards):
   gemma3-4b ``train_4k`` on the 16x16 mesh, through ``run_one`` on the
   host's CPU (rank 0's step traced on meta tensors in a fake group of
   256 ranks), gated on ``status == "ok"``, with its ``wall_s``;
-- ``dryrun_decode``: the same for a decode combination, stablelm-12b
-  ``decode_32k`` on the 16x16 mesh under ``--preset optimized`` (its KV
-  cache cut by sequence over model, its q heads by the rules).
+- ``dryrun_decode``: the same for three decode combinations on the
+  16x16 mesh, each record's flops, collective payload by kind, argument
+  and peak bytes: stablelm-12b ``decode_32k`` under ``--preset
+  optimized`` (its KV cache cut by sequence over model, its q heads by
+  the rules; the batch cut), and two where the batch is whole, so the
+  weights stay where they lie and only activations move:
+  h2o-danube-3-4b ``long_500k`` (B 1) and olmoe-1b-7b ``decode_32k``
+  under ``optimized`` (the MoE preset leaves the batch whole).
 
 Then Saturn's own loop (profile -> solve -> execute -> observe ->
 replan) on xlstm-125m jobs at full width and 4 layers (the steps are
@@ -193,7 +198,9 @@ PAR_DECODE_STEPS = 4
 # dryrun_one / dryrun_decode: (arch, shape, multi_pod, preset) of the dry
 # run's combinations
 DRYRUN_ONE = ("gemma3-4b", "train_4k", False, "baseline")
-DRYRUN_DECODE = ("stablelm-12b", "decode_32k", False, "optimized")
+DRYRUN_DECODE = (("stablelm-12b", "decode_32k", False, "optimized"),
+                 ("h2o-danube-3-4b", "long_500k", False, "baseline"),
+                 ("olmoe-1b-7b", "decode_32k", False, "optimized"))
 
 
 def emit(phase, **kv):
@@ -1697,7 +1704,8 @@ def par_phases(smi):
          kernel_launches=check_no_launches("par_2d_group1"))
     emit("dryrun_one", **dryrun_record("dryrun_one", DRYRUN_ONE),
          kernel_launches=check_no_launches("dryrun_one"))
-    emit("dryrun_decode", **dryrun_record("dryrun_decode", DRYRUN_DECODE),
+    emit("dryrun_decode",
+         records=[dryrun_record("dryrun_decode", c) for c in DRYRUN_DECODE],
          kernel_launches=check_no_launches("dryrun_decode"))
 
 

@@ -13,6 +13,15 @@ enters through ``copy_in`` and its output leaves through one all-reduce
 one position (``_decode``) runs under tensor parallelism too, and on a
 KV cache cut by kv heads, head_dim or sequence (a rules plan's decode
 state).
+
+Where a decode step keeps the weights where they lie
+(``parallelism.context.contract_for``: a rules plan's decode with the
+batch whole), each weight matrix is the rank's slice of "embed" over
+data: a projection over embed takes the rank's slice of the whole
+activation and all-reduces the partial sums (:func:`embed_in`), one
+that writes embed all-gathers the rank's slice (:func:`embed_out`), so
+the residual stream stays whole between blocks.  Every block, the
+embedding and the unembedding project through them.
 """
 from __future__ import annotations
 
@@ -23,11 +32,48 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..parallelism import collectives as C
-from ..parallelism.context import tp_for
+from ..parallelism.context import contract_for, tp_for
 from .config import ModelConfig
 from .params import P
 
 NEG_INF = -1e30
+
+# ------------------------------------------------- weights kept in place
+
+def embed_in(f, x, *ws):
+    """``[f(x, w) for w in ws]``, each contracting x's last dim (embed)
+    against w's.  Where a decode step keeps the weights in place
+    (``contract_for("embed")``) each w holds the rank's slice of embed:
+    the rank's slice of x meets it, and the partial sums are all-reduced
+    over that axis, one collective for all of them."""
+    ax = contract_for("embed")
+    if ax is None:
+        return [f(x, w) for w in ws]
+    x = C.local_slice(x, -1, ax)
+    ys = [f(x, w) for w in ws]
+    C.all_reduce_buckets(ys, ax)
+    return ys
+
+
+def embed_out(y):
+    """``y``, whose last dim (embed) a projection wrote, whole: where a
+    decode step keeps the weights in place it holds the rank's slice,
+    all-gathered over the axis."""
+    ax = contract_for("embed")
+    return y if ax is None else C.all_gather(y, -1, ax)
+
+
+def rows_in(rows, *ts):
+    """The rank's rows (dim 0) of each of ``ts`` where a decode state's
+    rows are cut over ``rows`` and the activations' are whole
+    (``transformer._state_rows``)."""
+    return [t if rows is None else C.local_slice(t, 0, rows) for t in ts]
+
+
+def rows_out(rows, t):
+    """``t`` on every row again: :func:`rows_in`'s converse."""
+    return t if rows is None else C.all_gather(t, 0, rows)
+
 
 # ---------------------------------------------------------------- RMSNorm
 
@@ -90,7 +136,8 @@ _BLOCKWISE_THRESHOLD = 2048
 
 def attention(p, x, cfg: ModelConfig, *, window: int = 0,
               cache: Optional[dict] = None, positions=None, pos=None,
-              attn_fn=None, return_cache: bool = False, place=None):
+              attn_fn=None, return_cache: bool = False, place=None,
+              rows=None):
     """Causal (optionally windowed) GQA attention.
 
     cache=None  -> full-sequence (train / prefill); returns (y, None), or
@@ -102,7 +149,9 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0,
                    also runs under tensor parallelism and on a cache
                    part placed by ``place``, the rank's axis of each
                    cache dim) or a (B,) tensor, each row at its own
-                   position (continuous batching, one device).
+                   position (continuous batching, one device);
+                   ``rows``: the axis that cuts the cache's rows where
+                   x holds every row (:func:`rows_in`).
     attn_fn     -> fused attention for the full-sequence path:
                    (q, k, v, window) -> out.
     """
@@ -113,7 +162,7 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0,
         pos = torch.as_tensor(pos, device=dev)
     if cache is not None:
         if pos.ndim == 0:
-            return _decode(p, x, cfg, window, cache, pos, place)
+            return _decode(p, x, cfg, window, cache, pos, place, rows)
         if place is not None or tp_for("heads") is not None \
                 or tp_for("kv_heads") is not None:
             raise NotImplementedError(
@@ -182,11 +231,13 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0,
     return y, {"k": ck, "v": cv}
 
 
-def _decode(p, x, cfg: ModelConfig, window, cache, pos, place):
+def _decode(p, x, cfg: ModelConfig, window, cache, pos, place, rows=None):
     """One decode step at the scalar ``pos``, on the rank's part of the
     cache and of the weights.  ``place`` gives the rank's axis of each
-    cache dim (B, L, Kv, D; None: the cache whole); the rows are the
-    block's business (``transformer._block_apply``).  The cache is
+    cache dim (B, L, Kv, D; None: the cache whole); where it cuts the
+    rows and x holds every row (``rows``), q, k and v are projected for
+    every row, the rank attends for its rows, and the output is
+    gathered over the rows before ``wo``.  The cache is
     updated in place (the JAX package's ``dynamic_update_slice`` returns
     a new array); ``index_copy_`` writes one row instead of rewriting
     it.  The cache never leaves the rank: only one token's q, k and v,
@@ -208,28 +259,34 @@ def _decode(p, x, cfg: ModelConfig, window, cache, pos, place):
       weighted values in one all-reduce.
     - The output is re-laid to ``wo``'s heads (all-gathered along
       head_dim where that was cut), and the rank's part of the output
-      projection is summed over the tensor-parallel axis."""
+      projection is summed over the tensor-parallel axis.
+    - q, k, v and the output projection go through :func:`embed_in` and
+      :func:`embed_out`: where the weights stay in place they split
+      their contraction over embed."""
     _, ax_s, ax_k, ax_d = place or (None,) * 4
     tp, tp_kv = tp_for("heads"), tp_for("kv_heads")
-    b = x.shape[0]
     dev = x.device
-    positions = pos.to(torch.int32).expand(b, 1)
-    proj = lambda w: torch.einsum("bsd,dhk->bshk", x, w)
-    q = rope(proj(p["wq"]), positions, cfg.rope_theta)
-    q = C.relay(C.relay(q, 2, tp, ax_k), 3, None, ax_d)
+    proj = lambda x_, w: torch.einsum("bsd,dhk->bshk", x_, w)
     wk, wv = p["wk"], p["wv"]
-    if tp_kv is None and ax_d is not None:
-        # whole kv heads, a head_dim cut: the rank projects its slice of
-        # head_dim, and k's slices are gathered for rope, which pairs
-        # the two halves of head_dim
+    # whole kv heads, a head_dim cut: the rank projects its slice of
+    # head_dim, and k's slices are gathered for rope, which pairs the
+    # two halves of head_dim
+    dim_cut = tp_kv is None and ax_d is not None
+    if dim_cut:
         wk, wv = C.local_slice(wk, 2, ax_d), C.local_slice(wv, 2, ax_d)
-        k = rope(C.all_gather(proj(wk), 3, ax_d), positions, cfg.rope_theta)
+    q, k, v = rows_in(rows, *embed_in(proj, x, p["wq"], wk, wv))
+    b = q.shape[0]
+    positions = pos.to(torch.int32).expand(b, 1)
+    q = rope(q, positions, cfg.rope_theta)
+    q = C.relay(C.relay(q, 2, tp, ax_k), 3, None, ax_d)
+    if dim_cut:
+        k = rope(C.all_gather(k, 3, ax_d), positions, cfg.rope_theta)
         k = C.relay(C.local_slice(k, 3, ax_d), 2, None, ax_k)
-        v = C.relay(proj(wv), 2, None, ax_k)
+        v = C.relay(v, 2, None, ax_k)
     else:
-        k = rope(proj(wk), positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
         k = C.relay(C.relay(k, 2, tp_kv, ax_k), 3, None, ax_d)
-        v = C.relay(C.relay(proj(wv), 2, tp_kv, ax_k), 3, None, ax_d)
+        v = C.relay(C.relay(v, 2, tp_kv, ax_k), 3, None, ax_d)
 
     ck, cv = cache["k"], cache["v"]
     n = ck.shape[1]
@@ -261,11 +318,11 @@ def _decode(p, x, cfg: ModelConfig, window, cache, pos, place):
         both = C.all_reduce(torch.cat([_gqa_out(e, cv.float()), den], -1),
                             ax_s)
         out = (both[..., :-1] / both[..., -1:]).to(x.dtype)
-    out = C.relay(C.relay(out, 3, ax_d, None), 2, ax_k, tp)
+    out = rows_out(rows, C.relay(C.relay(out, 3, ax_d, None), 2, ax_k, tp))
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if tp is not None:
         y = C.reduce_out(y, tp)
-    return y, {"k": ck, "v": cv}
+    return embed_out(y), {"k": ck, "v": cv}
 
 
 def _project_kv(p, x, cfg: ModelConfig, tp, whole: bool):
@@ -313,7 +370,7 @@ def ffn(p, x):
     tp = tp_for("ffn")
     if tp is not None:
         x = C.copy_in(x, tp)
-    g = F.silu(torch.einsum("bsd,df->bsf", x, p["wi_gate"]))
-    u = torch.einsum("bsd,df->bsf", x, p["wi_up"])
-    y = torch.einsum("bsf,fd->bsd", g * u, p["wo"])
-    return y if tp is None else C.reduce_out(y, tp)
+    g, u = embed_in(lambda x_, w: torch.einsum("bsd,df->bsf", x_, w), x,
+                    p["wi_gate"], p["wi_up"])
+    y = torch.einsum("bsf,fd->bsd", F.silu(g) * u, p["wo"])
+    return embed_out(y if tp is None else C.reduce_out(y, tp))

@@ -21,6 +21,12 @@ parallelism):
 every rank routes the whole batch, the ``shard`` sites cut the
 dispatched slabs and their gate weights to the rank's experts, each
 rank combines its experts' share, and one all-reduce sums the shares.
+
+Where a decode step keeps the weights in place
+(``parallelism.context.contract_for``) the router and the experts'
+``wi`` contract over the rank's slice of embed (``layers.embed_in``),
+and the combined output, the rank's slice of embed, is all-gathered
+(``layers.embed_out``).
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ import torch.nn.functional as F
 from ..parallelism import collectives as C
 from ..parallelism.context import shard, tp_for
 from .config import ModelConfig
-from .layers import rmsnorm_spec
+from .layers import embed_in, embed_out, rmsnorm_spec
 from .params import P
 
 
@@ -71,7 +77,7 @@ def route(p, x, cfg: ModelConfig, cap: int) -> Routes:
     m = cfg.moe
     b, s, _ = x.shape
     k, e = m.top_k, m.num_experts
-    logits = (x @ p["router"]).float()                       # (B, S, E)
+    logits = embed_in(torch.matmul, x, p["router"])[0].float()  # (B,S,E)
     probs = torch.softmax(logits, dim=-1)
     top_w, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_idx = top_w[..., :k], top_idx[..., :k]        # (B, S, k)
@@ -140,14 +146,14 @@ def moe_ffn(p, x, cfg: ModelConfig):
     xg = x.gather(1, routes.tok_of_slot.reshape(b, e * cap, 1)
                   .expand(-1, -1, d)).reshape(b, e, cap, d)
     xg = shard(xg, "batch", "experts", None, None)
-    g = F.silu(torch.einsum("becd,edf->becf", xg, p["wi_gate"]))
-    u = torch.einsum("becd,edf->becf", xg, p["wi_up"])
-    y = torch.einsum("becf,efd->becd", g * u, p["wo"])       # (B, E, C, d)
+    g, u = embed_in(lambda x_, w: torch.einsum("becd,edf->becf", x_, w), xg,
+                    p["wi_gate"], p["wi_up"])
+    y = torch.einsum("becf,efd->becd", F.silu(g) * u, p["wo"])  # (B,E,C,d)
     y = shard(y, "batch", "experts", None, None)
     w = shard(routes.w_of_slot, "batch", "experts", None)
     y = y * w[..., None].to(y.dtype)
     tp = tp_for("experts")
     if tp is None:
-        return combine(y, routes), routes.aux.mean()
+        return embed_out(combine(y, routes)), routes.aux.mean()
     out = combine(y, routes, first_expert=tp.rank * y.shape[1])
-    return C.reduce_out(out, tp), routes.aux.mean()
+    return embed_out(C.reduce_out(out, tp)), routes.aux.mean()

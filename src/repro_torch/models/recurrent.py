@@ -21,7 +21,12 @@ prefill returns the state of the rank's channels or heads.  A decode
 step takes its tensor-parallel path too, on the rank's parts of a
 decode state placed as ``launch.mesh.cache_shardings`` places it
 (``place``), re-laying the small recurrent states where their cut is not
-the weights'.
+the weights'.  Where its rows are cut and the activations' are whole
+(``rows``), the step projects every row, runs the recurrence on the
+rank's rows and gathers them before the output projection; where the
+weights stay in place (``parallelism.context.contract_for``), the
+projections over and onto embed split their contraction
+(``layers.embed_in`` / ``embed_out``).
 """
 from __future__ import annotations
 
@@ -31,10 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from ..parallelism import collectives as C
-from ..parallelism.context import tp_for
+from ..parallelism.context import contract_for, tp_for
 from .blockwise import mlstm_chunked
 from .config import ModelConfig
-from .layers import rmsnorm_spec
+from .layers import embed_in, embed_out, rmsnorm_spec, rows_in, rows_out
 from .params import P
 from .slstm_scan import slstm_scan, step_core
 
@@ -124,7 +129,8 @@ def rglru_scan_ref(a, b):
 
 
 def rglru_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
-                scan_fn=None, return_state: bool = False, place=None):
+                scan_fn=None, return_state: bool = False, place=None,
+                rows=None):
     """Griffin recurrent block.  x: (B,S,d).  Returns (y, new_state).
 
     state=None: full sequence through ``scan_fn`` (a, b) -> h, by default
@@ -134,12 +140,13 @@ def rglru_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     the rank's rnn channels; ``place`` gives the rank's axis of each
     state dim, and a state cut otherwise than the weights (h on dim 1,
     the conv tail on dim 2) is re-laid to the rank's channels and back
-    (``collectives.relay``: an all-gather, a slice)."""
+    (``collectives.relay``: an all-gather, a slice); ``rows``: the axis
+    that cuts the state's rows where x holds every row."""
     tp = tp_for("rnn")
     if tp is not None:
         x = C.copy_in(x, tp)
-    gelu_branch = F.gelu(x @ p["w_gelu"], approximate="tanh")
-    u = x @ p["w_branch"]
+    g, u = embed_in(torch.matmul, x, p["w_gelu"], p["w_branch"])
+    gelu_branch = F.gelu(g, approximate="tanh")
     if state is None:
         a, b = _rglru_coeffs(p, conv1d(p["conv"], u), tp)
         h = (scan_fn or rglru_scan_ref)(a, b)
@@ -152,15 +159,16 @@ def rglru_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     # ---- decode step
     ax_h = place["h"][1] if place else None
     ax_c = place["conv"][2] if place else None
-    u_t, conv_state = conv1d_step(p["conv"], u[:, 0],
+    u_t, gate = rows_in(rows, u[:, 0], gelu_branch[:, 0])
+    u_t, conv_state = conv1d_step(p["conv"], u_t,
                                   C.relay(state["conv"], 2, ax_c, tp))
     a, b = _rglru_coeffs(p, u_t, tp)
     h = a.float() * C.relay(state["h"], 1, ax_h, tp) + b.float()
-    y = ((h.to(x.dtype) * gelu_branch[:, 0]) @ p["w_out"])[:, None]
+    y = (rows_out(rows, h.to(x.dtype) * gate) @ p["w_out"])[:, None]
     if tp is not None:
         y = C.reduce_out(y, tp)
-    return y.to(x.dtype), {"h": C.relay(h, 1, tp, ax_h),
-                           "conv": C.relay(conv_state, 2, tp, ax_c)}
+    return embed_out(y.to(x.dtype)), {
+        "h": C.relay(h, 1, tp, ax_h), "conv": C.relay(conv_state, 2, tp, ax_c)}
 
 
 def rglru_state_spec(cfg: ModelConfig, batch: int, dtype):
@@ -221,7 +229,8 @@ _MLSTM_QUADRATIC_MAX_S = 512
 
 
 def mlstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
-                parallel_fn=None, return_state: bool = False, place=None):
+                parallel_fn=None, return_state: bool = False, place=None,
+                rows=None):
     """mLSTM block.  x: (B,S,d).  Returns (y, new_state).
 
     state=None: full sequence through ``parallel_fn`` (q, k, v, i_pre,
@@ -232,7 +241,7 @@ def mlstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     b, s, _ = x.shape
     tp = tp_for("ffn")
     if state is not None:
-        return _mlstm_decode(p, x, cfg, state, tp, place)
+        return _mlstm_decode(p, x, cfg, state, tp, place, rows)
     if tp is not None:
         x = C.copy_in(x, tp)
     xin = x @ p["w_up"]
@@ -284,11 +293,11 @@ def _only(have, *dims):
                  for d, a in enumerate(have))
 
 
-def _mlstm_decode(p, x, cfg: ModelConfig, state, tp, place):
+def _mlstm_decode(p, x, cfg: ModelConfig, state, tp, place, rows=None):
     """One mLSTM decode step; under ``tp`` on the rank's up-projection
     channels (the rules' "ffn" cut) and with ``place`` (the rank's axis
     of each state dim; None: the state whole) on the rank's parts of the
-    state.
+    state, its rows where ``rows`` cuts them.
 
     The step keeps C cut on its value dim and n on its key dim, as the
     decode state places them: q and k are summed whole over ``tp`` (all
@@ -302,7 +311,6 @@ def _mlstm_decode(p, x, cfg: ModelConfig, state, tp, place):
     conv tail is laid on ``tp``'s channels; each goes back to its
     placement after the step.  The gate biases, cut by heads where the
     rules cut the heads, are gathered whole."""
-    b = x.shape[0]
     nh = cfg.num_heads
     dh = 2 * cfg.d_model // nh
     pl = place or {}
@@ -315,13 +323,14 @@ def _mlstm_decode(p, x, cfg: ModelConfig, state, tp, place):
     whole = (lambda t: t) if tp is None else (lambda t: C.all_reduce(t, tp))
     bias = lambda t: C.relay(t, 0, tp_for("heads"), None)
 
-    xin = x @ p["w_up"]
-    z = x @ p["w_gate"]
-    c_t, conv_state = conv1d_step(p["conv"], xin[:, 0], st["conv"])
+    xin, z = embed_in(torch.matmul, x, p["w_up"], p["w_gate"])
+    xin, z = rows_in(rows, xin[:, 0], z[:, 0])
+    b = xin.shape[0]
+    c_t, conv_state = conv1d_step(p["conv"], xin, st["conv"])
     c_t = F.silu(c_t)
     q = whole(torch.einsum("bu,uhd->bhd", c_t, p["wq"])) * (dh ** -0.5)
     k = whole(torch.einsum("bu,uhd->bhd", c_t, p["wk"]))
-    v = torch.einsum("bu,uhd->bhd", xin[:, 0], p["wv"])
+    v = torch.einsum("bu,uhd->bhd", xin, p["wv"])
     v = C.reduce_scatter(v, 2, tp) if tp is not None and av == tp \
         else C.relay(whole(v), 2, None, av)
     i_pre = (whole(c_t @ p["wi"]) + bias(p["bi"])).float()
@@ -341,12 +350,12 @@ def _mlstm_decode(p, x, cfg: ModelConfig, state, tp, place):
     den = torch.maximum(torch.abs(nq), torch.exp(-m_new))
     h = C.relay(num / den[..., None], 2, av, None).reshape(b, nh * dh)
     h = C.relay(h.to(x.dtype), 1, None, tp)
-    out = (h * F.silu(z[:, 0])) @ p["w_down"]
+    out = rows_out(rows, h * F.silu(z)) @ p["w_down"]
     if tp is not None:
         out = C.reduce_out(out, tp)
     new = {"C": cmat, "n": n, "m": m_new, "conv": conv_state}
-    return out[:, None], {k: C.relay_dims(t, want[k], have[k])
-                          for k, t in new.items()}
+    return embed_out(out)[:, None], {k: C.relay_dims(t, want[k], have[k])
+                                     for k, t in new.items()}
 
 
 def mlstm_state_spec(cfg: ModelConfig, batch: int, dtype):
@@ -390,7 +399,7 @@ def _slstm_step(p, carry, gates_t):
 
 def slstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
                 return_state: bool = False, slstm_fn=None,
-                batched_grad: bool = False, place=None):
+                batched_grad: bool = False, place=None, rows=None):
     """sLSTM block.  x: (B,S,d).  Returns (y, new_state).
 
     state=None: the recurrence over the whole sequence, one
@@ -406,7 +415,7 @@ def slstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     b, s, d = x.shape
     tp = tp_for("heads")
     if state is not None:
-        return _slstm_decode(p, x, cfg, state, tp, place)
+        return _slstm_decode(p, x, cfg, state, tp, place, rows)
     if tp is not None:
         x = C.copy_in(x, tp)
     nh, dh = p["wz"].shape[1:]      # a rank's heads under ``tp``
@@ -440,10 +449,10 @@ def slstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
     return _slstm_out(p, h, tp), None
 
 
-def _slstm_decode(p, x, cfg: ModelConfig, state, tp, place):
+def _slstm_decode(p, x, cfg: ModelConfig, state, tp, place, rows=None):
     """One sLSTM decode step; with ``place`` (the rank's axis of each dim
     of c, n, m and h, (B, heads, head_dim); None: the state whole) on
-    the rank's parts of the state.
+    the rank's parts of the state, its rows where ``rows`` cuts them.
 
     The step keeps the state's cut on head_dim: the rank computes the
     four pre-activations of its head_dim slice of every head, from the
@@ -457,8 +466,10 @@ def _slstm_decode(p, x, cfg: ModelConfig, state, tp, place):
     made whole for the step and cut back after it
     (``collectives.relay_dims``).  The output is the rank's part of
     ``h . w_out`` (its head_dim slice of h against its rows of w_out),
-    all-reduced."""
-    b, _, d = x.shape
+    all-reduced; where the weights stay in place, w_out's rows are the
+    rank's slice of embed, so h is made whole and meets them through
+    ``layers.embed_in``."""
+    d = x.shape[-1]
     pl = place or {}
     have = {k: pl.get(k, (None,) * state[k].dim()) for k in state}
     want = {k: _only(have[k], 2) for k in state}
@@ -470,29 +481,36 @@ def _slstm_decode(p, x, cfg: ModelConfig, state, tp, place):
     names = (("wz", "rz", None), ("wi", "ri", "bi"), ("wf", "rf", "bf"),
              ("wo", "ro", None))
     # the rank's rows of a weight cut on head_dim (dim ``e``) over ``ax``
-    rows = lambda name, e, ax: C.relay(p[name], e, None, ax)
+    mine = lambda name, e, ax: C.relay(p[name], e, None, ax)
+    ax = ae if tp is None else None
+    gx = rows_in(rows, *embed_in(
+        lambda x_, w: torch.einsum("bd,dhe->bhe", x_, w), x[:, 0],
+        *(mine(w, 2, ax) for w, _, _ in names)))
 
-    def pre(w, r, bias, ax, h_in):
-        g = torch.einsum("bd,dhe->bhe", x[:, 0], rows(w, 2, ax))
+    def pre(g, r, bias, h_in):
         if bias is not None:
-            g = g + rows(bias, 1, ax)
-        return g + torch.einsum("bhd,hed->bhe", h_in, rows(r, 1, ax))
+            g = g + mine(bias, 1, ax)
+        return g + torch.einsum("bhd,hed->bhe", h_in, mine(r, 1, ax))
     if tp is None:
-        pres = [pre(w, r, bias, ae, h_prev) for w, r, bias in names]
+        pres = [pre(g, r, bias, h_prev)
+                for g, (_, r, bias) in zip(gx, names)]
     else:
         h_loc = C.local_slice(h_prev, 1, tp)
-        pres = torch.stack([pre(w, r, bias, None, h_loc)
-                            for w, r, bias in names], dim=-1)
+        pres = torch.stack([pre(g, r, bias, h_loc)
+                            for g, (_, r, bias) in zip(gx, names)], dim=-1)
         pres = C.relay(C.relay(pres, 1, tp, None), 2, None, ae).unbind(-1)
     c, n, m, h = step_core(*pres, st["c"], st["n"], st["m"])
     h = h.to(state["h"].dtype)
-    if ae is None:
-        y = h.reshape(b, d) @ p["w_out"]
+    h_out = rows_out(rows, h)
+    if ae is None or contract_for("embed") is not None:
+        b = h_out.shape[0]
+        y = embed_in(torch.matmul, C.relay(h_out, 2, ae, None).reshape(b, d),
+                     p["w_out"])[0]
     else:
         # the rank's head_dim slice of every head meets its rows of
         # w_out, and the partial outputs are summed
         w_out = C.local_slice(p["w_out"].reshape(h.shape[1], -1, d), 1, ae)
-        y = C.reduce_out(torch.einsum("bhe,hed->bd", h, w_out), ae)
+        y = C.reduce_out(torch.einsum("bhe,hed->bd", h_out, w_out), ae)
     y = y[:, None]
     new = {"c": c, "n": n, "m": m, "h": h}
     return y, {k: C.relay_dims(t, want[k], have[k]) for k, t in new.items()}

@@ -20,7 +20,10 @@ each rank looks up and scores its vocab rows, and the loss is taken
 over the ranks' logit shards (``train.steps``).  The model takes the
 parameters of each unit through ``use`` (the embedding, the final norm,
 the unembedding, a block of a layer group), where an fsdp step makes
-them whole just in time.
+them whole just in time.  A decode step that keeps the weights in place
+(``parallelism.context.contract_for``) looks up and scores the rank's
+slice of embed, and gathers or sums it over data
+(``layers.embed_in`` / ``embed_out``).
 
 ``opts=None`` means ``kernel_opts(<device of the params>)``: on CUDA the
 full-sequence attention, RG-LRU scan, mLSTM and sLSTM run the
@@ -41,8 +44,8 @@ from ..parallelism import collectives as C
 from ..parallelism.context import (bound_rules, bound_use, current_layout,
                                    placed, shard, tp_for, use)
 from .config import ATTN, MLSTM, RECURRENT, RGLRU, SLSTM, SWA, ModelConfig
-from .layers import (attention, attention_spec, attn_cache_spec, ffn,
-                     ffn_spec, rmsnorm, rmsnorm_spec)
+from .layers import (attention, attention_spec, attn_cache_spec, embed_in,
+                     embed_out, ffn, ffn_spec, rmsnorm, rmsnorm_spec)
 from .moe import moe_ffn, moe_spec
 from .params import P, init_params, stack_specs, tree_map, tree_map_with_path
 from .recurrent import (mlstm_block, mlstm_block_spec, mlstm_state_spec,
@@ -176,36 +179,35 @@ def _block_apply(p, x, *, kind, cfg: ModelConfig, cache=None, positions=None,
                  pos=None, opts=None, prefill=False, place=None):
     """One block.  In decode, ``place`` gives the rank's axis of each dim
     of each state leaf (None: nothing cut); where the state's rows are
-    cut and the activations' are not, the mixer runs on the rank's rows
-    and its output rows are all-gathered."""
+    cut and the activations' are not, the mixer projects every row, runs
+    its attention or recurrence on the rank's rows and gathers them
+    before its output projection (``rows``)."""
     _check_kind(kind)
     opts = opts or {}
     h = rmsnorm(p["mixer"]["norm"], x, cfg.norm_eps)
     rows = _state_rows(h, cache, place)
-    if rows is not None:
-        h = C.local_slice(h, 0, rows)
     if kind == RGLRU:
         y, nc = rglru_block(p["mixer"], h, cfg, state=cache,
                             scan_fn=opts.get("rglru_scan"),
-                            return_state=prefill, place=place)
+                            return_state=prefill, place=place, rows=rows)
     elif kind == MLSTM:
         y, nc = mlstm_block(p["mixer"], h, cfg, state=cache,
                             parallel_fn=opts.get("mlstm_fn"),
-                            return_state=prefill, place=place)
+                            return_state=prefill, place=place, rows=rows)
     elif kind == SLSTM:
         y, nc = slstm_block(p["mixer"], h, cfg, state=cache,
                             return_state=prefill,
                             slstm_fn=opts.get("slstm_fn"),
                             batched_grad=opts.get("slstm_batched_grad",
-                                                  False), place=place)
+                                                  False), place=place,
+                            rows=rows)
     else:
         window = cfg.window_size if kind == SWA else 0
         y, nc = attention(p["mixer"], h, cfg, window=window, cache=cache,
                           positions=positions, pos=pos,
                           attn_fn=opts.get("attn_fn"), return_cache=prefill,
-                          place=None if place is None else place["k"])
-    if rows is not None:
-        y = C.all_gather(y, 0, rows)
+                          place=None if place is None else place["k"],
+                          rows=rows)
     x = x + y
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in p:
@@ -334,15 +336,17 @@ def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, Any]):
 def _embed_tokens(table, tokens):
     """Rows of ``table`` for ``tokens``; under tensor parallelism the
     rank holds a slice of the vocab, looks up the tokens that fall in
-    it, and the ranks' rows are summed."""
+    it, and the ranks' rows are summed.  Where a decode step keeps the
+    weights in place the table holds the rank's slice of embed, and the
+    rows' slices are all-gathered after the sum."""
     tp = tp_for("vocab")
     if tp is None:
-        return table[tokens.long()]
+        return embed_out(table[tokens.long()])
     n = table.shape[0]
     local = tokens.long() - tp.rank * n
     inside = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)] * inside[..., None].to(table.dtype)
-    return C.reduce_out(rows, tp)
+    return embed_out(C.reduce_out(rows, tp))
 
 
 def unembed(params, cfg: ModelConfig, x):
@@ -350,9 +354,10 @@ def unembed(params, cfg: ModelConfig, x):
     if tp is not None:
         x = C.copy_in(x, tp)
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x, use(params["embed"]))
+        eq, w = "bsd,vd->bsv", use(params["embed"])
     else:
-        logits = torch.einsum("bsd,dv->bsv", x, use(params["unembed"]))
+        eq, w = "bsd,dv->bsv", use(params["unembed"])
+    logits = embed_in(lambda x_, w_: torch.einsum(eq, x_, w_), x, w)[0]
     return shard(logits, "batch", "seq", "vocab")
 
 

@@ -30,7 +30,12 @@ ranks it runs the plan's technique as one rank of the job:
   model computes on its "model" parts as under ``tp``; the batch is cut
   over its axis or tuple of axes (``("pod", "data")``), and a gradient
   is averaged over the batch axes that its gather did not already sum.
-  ``running(params)`` is the same context for a prefill.
+  ``running(params)`` is the same context for a prefill.  A decode step
+  (``running(params, layout)``) under rules that leave the batch whole
+  gathers none of the weight matrices' "embed" cuts: every rank runs the
+  same rows, so the model splits those dots' contraction over "data"
+  instead (``context.contract_for``), as GSPMD does; only a norm's
+  scale is still made whole.
 
 The gradient clip needs the norm of the whole gradient: each rank's sum
 of squares over its sharded leaves is all-reduced over the axes they are
@@ -155,6 +160,9 @@ class BuiltJob:
         self.p_sh = param_shardings(self.spec_tree, plan)
         self._placement: Dict[tuple, tuple] = {}
         self._dims: List[Optional[int]] = []     # the gathered dim
+        # the gathered dim of each leaf that a decode with the batch
+        # whole leaves in place: a weight matrix's "embed"
+        self._in_place_dims: List[Optional[int]] = []
         self._cut_axes: List[tuple] = []         # every axis a leaf is cut on
         self._reduce_axes: List[tuple] = []      # its gradient's all-reduce
         self._divisor: List[int] = []
@@ -181,6 +189,11 @@ class BuiltJob:
                                 if a not in g_axes)
             self._placement[path] = ps
             self._dims.append(gathered[0][0] if gathered else None)
+            matrix = sum(a != "layers" for a in spec.axes) > 1
+            self._in_place_dims.append(
+                None if gathered and matrix
+                and spec.axes[gathered[0][0]] == "embed"
+                else self._dims[-1])
             self._cut_axes.append(cut_axes)
             self._reduce_axes.append(reduce_axes)
             self._divisor.append(size(self.batch_axes) * size(
@@ -213,15 +226,17 @@ class BuiltJob:
         return lm_loss(params, self.cfg, batch, opts=self.opts,
                        remat=self.plan.remat)
 
-    def _gathering(self, leaves, saved=False):
+    def _gathering(self, leaves, saved=False, in_place=False):
         """The just-in-time gather of the dims that the plan cuts over its
         gather axis (none: a null context); with ``saved``, autograd
-        keeps only the rank's part of each whole weight it saves."""
+        keeps only the rank's part of each whole weight it saves; with
+        ``in_place``, the weight matrices' "embed" cuts stay as they
+        lie."""
         if self._gather_axis is None:
             return contextlib.nullcontext()
         stack = contextlib.ExitStack()
         gather = ParamGather(self.mesh.axis(self._gather_axis), leaves,
-                             self._dims)
+                             self._in_place_dims if in_place else self._dims)
         stack.enter_context(param_gather(gather))
         if saved:
             stack.enter_context(gather.saved_as_parts())
@@ -234,11 +249,16 @@ class BuiltJob:
         a rules plan is ``prefill_forward`` inside it, a decode step
         ``decode_step`` inside it with ``layout``, the placements of the
         decode state's leaves (``launch.mesh.cache_shardings``), under
-        which each leaf is the rank's part (:meth:`shard_state`)."""
+        which each leaf is the rank's part (:meth:`shard_state`).  A
+        decode step under rules that leave the batch whole keeps the
+        weight matrices' "embed" cuts in place and splits their dots'
+        contraction (``context.contract_for``)."""
         if layout is not None:
             self.flatten_layout(layout)
-        with axis_rules(self.rules, self.mesh, self.sizes), \
-                state_layout(layout), self._gathering(_leaves(params)):
+        in_place = layout is not None and self.rules.get("batch") is None
+        with axis_rules(self.rules, self.mesh, self.sizes, in_place), \
+                state_layout(layout), \
+                self._gathering(_leaves(params), in_place=in_place):
             yield
 
     def flatten_layout(self, layout) -> None:

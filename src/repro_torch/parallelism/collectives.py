@@ -59,6 +59,7 @@ def local_slice(x, dim: int, axis: Axis):
 
 def all_gather(x, dim: int, axis: Axis):
     """The parts of every rank along ``dim``, in rank order."""
+    dim %= x.ndim
     x = x.contiguous()
     # the parts stacked along dim 0, the layout every backend takes
     out = torch.empty((axis.size * x.shape[0],) + tuple(x.shape[1:]),

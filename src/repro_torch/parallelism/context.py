@@ -30,6 +30,14 @@ scanned layer group): the tree itself (its repeat ``r``), or, under
 unit made whole just in time along the dims cut over an axis other than
 ``"model"`` (:mod:`~repro_torch.parallelism.fsdp`).
 
+``contract_for(logical)`` is the mesh axis a decode step contracts over
+in place of gathering the weights: where the rules leave the batch
+whole (a decode at B 1, the optimized preset's MoE decode), every rank
+runs the same rows, so a weight cut on "embed" over data stays where it
+lies and the projections split their contraction over that axis
+(``models.layers.embed_in`` / ``embed_out``), as GSPMD partitions the
+reference's decode; ``BuiltJob.running(params, layout)`` turns it on.
+
 ``state_layout`` holds the per-dim placements of a decode state's
 leaves (``launch.mesh.cache_shardings``) while a rules plan decodes:
 each leaf is the rank's part under its placement, and ``placed`` turns
@@ -63,17 +71,25 @@ def _current_sizes() -> Dict[str, int]:
     return getattr(_state, "sizes", None) or {}
 
 
+def _in_place() -> bool:
+    return getattr(_state, "in_place", False)
+
+
 @contextlib.contextmanager
-def axis_rules(rules: dict, mesh, sizes: Optional[Dict[str, int]] = None):
+def axis_rules(rules: dict, mesh, sizes: Optional[Dict[str, int]] = None,
+               in_place: bool = False):
     """rules: {logical_axis_name: mesh_axis | tuple[mesh_axis] | None};
     mesh: a :class:`~repro_torch.parallelism.dist.Mesh`; sizes: the
-    global size of each logical axis the model cuts in place."""
-    prev = (current_rules(), current_mesh(), _current_sizes())
-    _state.rules, _state.mesh, _state.sizes = rules, mesh, sizes
+    global size of each logical axis the model cuts in place; in_place:
+    a decode step that keeps the weights where they lie where the rules
+    leave the batch whole (:func:`contract_for`)."""
+    prev = (current_rules(), current_mesh(), _current_sizes(), _in_place())
+    _state.rules, _state.mesh, _state.sizes, _state.in_place = \
+        rules, mesh, sizes, in_place
     try:
         yield
     finally:
-        _state.rules, _state.mesh, _state.sizes = prev
+        _state.rules, _state.mesh, _state.sizes, _state.in_place = prev
 
 
 @contextlib.contextmanager
@@ -111,7 +127,7 @@ def bound_rules():
     thread of its own for a CUDA device, where this thread's rules are
     not set."""
     return functools.partial(axis_rules, current_rules(), current_mesh(),
-                             _current_sizes())
+                             _current_sizes(), _in_place())
 
 
 def spec_for(axes: Sequence[Optional[str]], rules=None) -> Tuple:
@@ -172,6 +188,26 @@ def tp_for(logical: str):
             or rules.get(logical) != TP_AXIS:
         return None
     ax = mesh.axis(TP_AXIS)
+    return ax if ax.size > 1 else None
+
+
+def contract_for(logical: str):
+    """The mesh axis (an ``Axis``) that the rules cut ``logical`` over,
+    where a decode step keeps the weights in place (``axis_rules``'
+    ``in_place``) under rules whose batch is None, and that axis is not
+    the tensor-parallel one and has more than one rank; else None.  A
+    weight cut on ``logical`` over it is then the rank's part as it
+    lies: a projection over that dim contracts over the rank's slice of
+    it and all-reduces the partial sums, one that writes it all-gathers
+    the rank's slice."""
+    rules, mesh = current_rules(), current_mesh()
+    if not _in_place() or rules is None or mesh is None \
+            or rules.get("batch") is not None:
+        return None
+    m = rules.get(logical)
+    if m is None or m == TP_AXIS:
+        return None
+    ax = mesh.axis(m)
     return ax if ax.size > 1 else None
 
 
