@@ -55,8 +55,8 @@ kernels' launch counters held at 0 throughout:
 Then process groups (``parallelism.dist``; the one card holds one rank
 of NCCL, which refuses two ranks on one device, so the multi-rank checks
 are ``tests/test_torch_parallelism.py`` on the CPU and
-``python -m repro_torch.testing.parallel_check ARCH --ranks 4 --device
-cuda`` on four cards):
+``python -m repro_torch.testing.parallel_check ARCH --ranks 4`` on four
+cards, its default device; ``--device cpu`` runs its ranks on gloo):
 
 - ``par_group1``: xlstm-125m at full width and 4 layers, B 8 x S 128,
   ``ddp`` and ``remat-offload`` two steps each through ``BuiltJob`` as
@@ -69,7 +69,10 @@ cuda`` on four cards):
   a prefill of B 8 x S 128 and four greedy decode steps from it under
   the rules plan with the decode state placed by ``cache_shardings``,
   tokens, logits and every state leaf bit-equal to the no-group
-  ``prefill_forward`` and ``decode_step``;
+  ``prefill_forward`` and ``decode_step``; and four greedy steps of
+  h2o-danube-3-4b reduced with each row at its own position (a (B,)
+  ``pos``, as continuous batching decodes) from a random state, the
+  same gate;
 - ``dryrun_one``: one full-width combination of the multi-pod dry run,
   gemma3-4b ``train_4k`` on the 16x16 mesh, through ``run_one`` on the
   host's CPU (rank 0's step traced on meta tensors in a fake group of
@@ -1662,7 +1665,77 @@ def decode_group1(group, cfg, batch):
         "prefill_batch": b, "prefill_seq": s, "steps": PAR_DECODE_STEPS,
         "tokens": [t[:, 0].tolist() for _, t in c["steps"]],
         "no_group_s": a["seconds"], "group_s": c["seconds"],
-        "bit_equal_tokens_logits_state": True}}
+        "bit_equal_tokens_logits_state": True},
+        "decode_per_row": decode_rows_group1(group)}
+
+
+def decode_rows_group1(group):
+    """PAR_DECODE_STEPS greedy decode steps with each row at its own
+    position (``pos`` of shape (B,), as continuous batching decodes),
+    under the rules plan on PAR_2D_MESH as rank 0 of ``group`` and
+    without a group, on h2o-danube-3-4b reduced to 4 layers (window 32)
+    in fp32, from a random state of KV caches of length 64
+    (``parallel_check.random_decode_state`` and ``random_positions``,
+    rows on both sides of 32) placed by ``cache_shardings`` under the
+    "seq" policy: tokens, logits, every state leaf and the positions
+    bit-equal.  Each side's seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import cache_shardings
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.params import tree_leaves_with_paths
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallelism.build import BuiltJob
+    from repro_torch.testing.parallel_check import (
+        _decode_state, greedy_decode, random_decode_state, random_positions,
+        rules_plan)
+    cfg = get_config("h2o-danube-3-4b").reduced(num_layers=4)
+    b, n = SATURN_B, 64
+    params = init_model(cfg, seed=0, device="cuda")
+    state_np = random_decode_state(cfg, b, n, seed=3)
+    start = random_positions(b, n, seed=3)
+    tokens = torch.as_tensor(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (b, 1)).astype(np.int32), device="cuda")
+    layout, _ = cache_shardings(cfg, InputShape("decode", n, b, "decode"),
+                                PAR_2D_MESH, False, policy="seq")
+    runs = {}
+    for name in ("no_group", "group"):
+        job = None if name == "no_group" else BuiltJob(
+            cfg, rules_plan(cfg, PAR_2D_MESH), AdamWConfig(), group=group)
+        p = params if job is None else job.shard(params)
+        state = _decode_state(state_np, start, "cuda")
+        if job is not None:
+            state = job.shard_state(state, layout)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps, state = greedy_decode(cfg, p, tokens, state,
+                                     PAR_DECODE_STEPS, job,
+                                     None if job is None else layout)
+        torch.cuda.synchronize()
+        runs[name] = {"seconds": time.perf_counter() - t0, "steps": steps,
+                      "pos": state["pos"],
+                      "state": [t for _, t in
+                                tree_leaves_with_paths(state["layers"])]}
+    a, c = runs["no_group"], runs["group"]
+    unequal = [i for i, ((la, ta), (lc, tc)) in enumerate(
+        zip(a["steps"], c["steps"]))
+        if not (torch.equal(ta, tc) and torch.equal(la, lc))]
+    unequal += [f"state {i}" for i, (x, y) in enumerate(
+        zip(a["state"], c["state"])) if not torch.equal(x, y)]
+    want = torch.as_tensor(start + PAR_DECODE_STEPS, device="cuda")
+    if not (torch.equal(a["pos"], want) and torch.equal(c["pos"], want)):
+        unequal.append("pos")
+    if unequal:
+        raise AssertionError(f"per-row decode in a group of one is not "
+                             f"the no-group decode: {unequal[:5]}")
+    return {"config": cfg.name, "batch": b, "cache_len": n,
+            "policy": "seq", "start_pos": start.tolist(),
+            "steps": PAR_DECODE_STEPS,
+            "tokens": [t[:, 0].tolist() for _, t in c["steps"]],
+            "no_group_s": a["seconds"], "group_s": c["seconds"],
+            "bit_equal_tokens_logits_state_pos": True}
 
 
 def par_2d_group1():

@@ -162,6 +162,10 @@ def timed_trial(built: BuiltJob, batch_size: int, seq_len: int):
             torch.cuda.synchronize(dev)
 
     if on_cuda:
+        # the allocator's statistics exist once CUDA is initialised: in a
+        # process whose first CUDA call this is, resetting them raises
+        # ("Invalid device argument")
+        sync()
         torch.cuda.reset_peak_memory_stats(dev)
     params = opt = batch = None
     try:

@@ -223,7 +223,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, *,
             rules_override: Optional[dict] = None,
             param_rules_override: Optional[dict] = None,
             cache_policy: str = "heads", preset: str = "baseline",
-            peak_top: int = 0, verbose: bool = True) -> dict:
+            peak_top: int = 0, top_writers: int = 0,
+            verbose: bool = True) -> dict:
     """One combination's record, with the reference's keys: ``arch``,
     ``shape``, ``mesh``, ``mode``, ``preset``, ``status`` ("ok",
     "skipped" or "fail"), ``flops``, ``bytes_written``, ``collectives``
@@ -243,7 +244,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, *,
     for; and ``params``, the model's parameter count.  ``peak_top > 0``
     adds ``memory["at_peak"]``, the live bytes at the peak by the op,
     shape and dtype of the tensors that hold them
-    (:func:`~repro_torch.launch.step_analysis.analyze_step`)."""
+    (:func:`~repro_torch.launch.step_analysis.analyze_step`);
+    ``top_writers > 0`` adds ``top_writers``, the bytes written by op,
+    shape and dtype (:func:`~repro_torch.launch.step_analysis.top_writers`)."""
     from .step_analysis import analyze_step
 
     cfg = get_config(arch)
@@ -275,7 +278,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, *,
             cache_policy=cache_policy)
         t1 = time.time()
         got = analyze_step(fn, args, world_size=plan.n_devices,
-                           peak_top=peak_top)
+                           peak_top=peak_top, writers_top=top_writers)
         rec["status"] = "ok"
         rec["trace_s"] = round(time.time() - t1, 2)
         rec["params"] = param_count(model_spec(cfg))
@@ -289,6 +292,11 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, *,
                 {"bytes": n, "count": c, "op": op, "shape": list(shp),
                  "dtype": str(dt).replace("torch.", "")}
                 for n, c, op, shp, dt in got["at_peak"]]
+        if top_writers:
+            rec["top_writers"] = [
+                {"bytes": n, "count": c, "op": op, "shape": list(shp),
+                 "dtype": str(dt).replace("torch.", "")}
+                for n, op, shp, dt, c in got["top_writers"]]
         if verbose:
             print(f"  cost: flops={rec['flops']:.3e} "
                   f"bytes={rec['bytes_written']:.3e} "
@@ -316,6 +324,9 @@ def main(argv=None):
                     help="record the N (op, shape, dtype) groups of most "
                          "bytes live at the peak "
                          "(traces each step twice)")
+    ap.add_argument("--top-writers", type=int, default=0,
+                    help="record the N (op, shape, dtype) groups of most "
+                         "bytes written")
     args = ap.parse_args(argv)
     archs = ARCH_IDS if args.arch == "all" else [args.arch]
     shapes = list(INPUT_SHAPES) if args.shape == "all" else [args.shape]
@@ -331,7 +342,8 @@ def main(argv=None):
                 print(f"[dryrun] {tag}", flush=True)
                 rec = run_one(arch, shape, mp, preset=args.preset,
                               remat=False if args.no_remat else None,
-                              peak_top=args.peak_top)
+                              peak_top=args.peak_top,
+                              top_writers=args.top_writers)
                 print(f"  -> {rec['status']} ({rec.get('wall_s', 0)}s)"
                       + (f" {rec.get('error', '')}"
                          if rec["status"] == "fail" else ""), flush=True)

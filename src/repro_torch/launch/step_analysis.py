@@ -17,7 +17,10 @@ below autograd:
   rule; a convolution is 2 × output elements × 64, the reference's rough
   ``convolution`` rule, so the two analyzers count the same thing;
 - ``bytes_written``: the output bytes of every op that is not a view
-  (the reference's HBM write-traffic proxy);
+  (the reference's HBM write-traffic proxy), except that an in-place scatter
+  counts what it writes into its destination, not the destination
+  (:data:`_SCATTER`), as the reference counts a dynamic-update-slice's
+  update operand (``_effective_out_bytes``);
 - ``collectives``: payload bytes by kind under the reference's names
   (``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``,
   ``collective-permute`` for send/recv) plus a ``total``.  The payload
@@ -26,6 +29,12 @@ below autograd:
 - ``peak_bytes``: the peak of live bytes (the storages alive at once,
   each from its first write to its release), arguments included — the
   counterpart of XLA's ``memory_analysis()`` temp + argument + output.
+
+Beside the totals the counter keeps a record by op: the bytes each (op,
+shape, dtype) wrote and each collective's payload by (kind, shape,
+dtype, group size), from which :func:`top_writers` and
+:func:`collective_details` give the reference's "where is the memory
+term coming from" views of a step.
 
 ``world_size > 1`` opens a default process group of the ``"fake"``
 backend (``torch.testing._internal.distributed.fake_pg``) as ``rank``
@@ -48,6 +57,7 @@ The framework-neutral functions (:data:`KNOWN_COLLECTIVES`,
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import math
 import sys
@@ -115,6 +125,68 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _arg(args, kwargs, i: int, name: str):
+    return args[i] if i < len(args) else kwargs.get(name)
+
+
+def _index_put_bytes(args, kwargs) -> int:
+    """``values`` broadcast to the indexed shape: the broadcast shape of
+    the index tensors times the dims they leave whole.  A bool index
+    counts its true elements where it lies on the CPU (elsewhere that
+    would need a sync, and ``values`` counts as it is)."""
+    dest = args[0]
+    idx = _arg(args, kwargs, 1, "indices")
+    shapes, whole, d = [], 1, 0
+    for t in idx:
+        if t is None:
+            whole *= dest.shape[d]
+            d += 1
+        elif t.dtype in (torch.bool, torch.uint8):
+            if t.device.type != "cpu":
+                return _arg(args, kwargs, 2, "values").numel() \
+                    * dest.element_size()
+            shapes.append((int(t.count_nonzero()),))
+            d += t.dim()
+        else:
+            shapes.append(tuple(t.shape))
+            d += 1
+    whole *= math.prod(dest.shape[d:])
+    return math.prod(torch.broadcast_shapes(*shapes)) * whole \
+        * dest.element_size()
+
+
+def _masked_scatter_bytes(args, kwargs) -> int:
+    """The mask's true count (broadcast to the destination) where it
+    lies on the CPU; elsewhere that would need a sync, and ``source``
+    counts."""
+    dest, mask = args[0], _arg(args, kwargs, 1, "mask")
+    if mask.device.type == "cpu":
+        return int(mask.expand(dest.shape).count_nonzero()) \
+            * dest.element_size()
+    return _nbytes(_arg(args, kwargs, 2, "source"))
+
+
+def _operand(i: int, name: str):
+    return lambda args, kwargs: _nbytes(_arg(args, kwargs, i, name))
+
+
+# in-place scatters: the bytes one writes into its destination (its
+# first argument), in place of the destination's.  The out-of-place
+# ``index_put`` is not one: it writes a fresh tensor whole.
+_SCATTER = {
+    aten.index_put_.default: _index_put_bytes,
+    aten._index_put_impl_.default: _index_put_bytes,
+    aten.index_copy_.default: _operand(3, "source"),
+    aten.index_add_.default: _operand(3, "source"),
+    aten.scatter_.src: _operand(3, "src"),
+    aten.scatter_.value: lambda args, kwargs: (
+        _arg(args, kwargs, 2, "index").numel() * args[0].element_size()),
+    aten.scatter_add_.default: _operand(3, "src"),
+    aten.scatter_reduce_.two: _operand(3, "src"),
+    aten.masked_scatter_.default: _masked_scatter_bytes,
+}
+
+
 # in-place ops that change a tensor's metadata, not only its data
 _RESTRIDE = {"resize_", "resize_as_", "set_", "as_strided_", "squeeze_",
              "unsqueeze_", "transpose_", "t_", "swapaxes_", "swapdims_",
@@ -163,7 +235,7 @@ class _Op:
     """What the counting mode needs of an op, read once from its
     schema."""
     __slots__ = ("kind", "lhs", "conv", "c10d", "send", "collective",
-                 "writes", "mutated")
+                 "writes", "mutated", "scatter", "pg", "name")
 
     def __init__(self, func):
         sch = func._schema
@@ -178,6 +250,17 @@ class _Op:
         self.writes = self.kind != "view" and func not in _NO_WRITE
         self.mutated = [(i, a.name) for i, a in enumerate(sch.arguments)
                         if a.alias_info is not None and a.alias_info.is_write]
+        self.scatter = _SCATTER.get(func)
+        self.pg = next((i for i, a in enumerate(sch.arguments)
+                        if a.name == "process_group"), None)
+        self.name = str(func)
+
+
+def _group_size(op: _Op, args) -> int:
+    """The size of the process group a c10d op runs over."""
+    if op.pg is None or op.pg >= len(args):
+        return dist.get_world_size()
+    return dist.ProcessGroup.unbox(args[op.pg]).size()
 
 
 def _written(op: _Op, args, kwargs, out) -> List[torch.Tensor]:
@@ -199,13 +282,18 @@ class StepCounter(TorchDispatchMode):
     """A dispatch mode that counts flops, bytes written, collective
     payloads and live bytes of every op below autograd, on any tensors:
     :func:`analyze_step` runs it on meta tensors, and it counts a real
-    step the same way (``result()`` gives the same dict)."""
+    step the same way (``result()`` gives the same dict).  ``writers``
+    holds the bytes written by (op, shape, dtype) and ``payloads`` each
+    collective's by (kind, shape, dtype, group size), as [bytes,
+    count]."""
 
     def __init__(self, snapshot_at: Optional[int] = None):
         super().__init__()
         self.flops = 0.0
         self.bytes_written = 0.0
         self.collectives: Dict[str, float] = {}
+        self.writers: Dict[tuple, list] = {}
+        self.payloads: Dict[tuple, list] = {}
         self.live = 0
         self.peak = 0
         # StorageImpl address -> (bytes, a weak reference whose callback
@@ -291,14 +379,35 @@ class StepCounter(TorchDispatchMode):
             self.flops += sum(2.0 * r.numel() * 64 for r in res[:2]
                               if isinstance(r, torch.Tensor))
         elif op.collective is not None:
+            got = _written(op, args, kwargs, out)
             self.collectives[op.collective] = \
                 self.collectives.get(op.collective, 0.0) + sum(
-                    _nbytes(t) for t in _written(op, args, kwargs, out))
+                    _nbytes(t) for t in got)
+            size = _group_size(op, args)
+            for t in got:
+                _add(self.payloads, (op.collective, tuple(t.shape),
+                                     t.dtype, size), _nbytes(t))
         if op.writes:
-            for t in _written(op, args, kwargs, out):
-                self.bytes_written += _nbytes(t)
+            for i, t in enumerate(_written(op, args, kwargs, out)):
+                n = op.scatter(args, kwargs) if op.scatter and i == 0 \
+                    else _nbytes(t)
+                self.bytes_written += n
+                _add(self.writers, (op.name, tuple(t.shape), t.dtype), n)
                 self.track(t)
         return out
+
+
+def _add(record: Dict[tuple, list], key: tuple, n: int) -> None:
+    entry = record.setdefault(key, [0, 0])
+    entry[0] += n
+    entry[1] += 1
+
+
+def _top(record: Dict[tuple, list], k: int) -> List[tuple]:
+    """(bytes, key..., count) rows of ``record``, most bytes first."""
+    rows = [(n,) + key + (c,) for key, (n, c) in record.items()]
+    rows.sort(key=lambda r: r[0], reverse=True)
+    return rows[:k]
 
 
 def _plain_storage(t: torch.Tensor) -> bool:
@@ -361,8 +470,53 @@ def current_group():
     return _GROUP.get("group")
 
 
+@contextlib.contextmanager
+def _session(world_size: int, rank: int):
+    """The frame of one analysis: under the module's lock, as ``rank``
+    of a fake default group of ``world_size`` where that is above 1,
+    and with no default group left after it."""
+    from ..parallelism.dist import Group
+    with _LOCK:
+        if dist.is_available() and dist.is_initialized():
+            raise RuntimeError(
+                "analyze_step opens a fake default process group, and "
+                "this process already has a default group")
+        # init_process_group wraps sys.excepthook with a rank prefix;
+        # it is put back with the group
+        hook = sys.excepthook
+        if world_size > 1:
+            fake_pg = _fake_pg()
+            dist.init_process_group("fake", store=fake_pg.FakeStore(),
+                                    rank=rank, world_size=world_size)
+            _GROUP["group"] = Group(rank, world_size, META, "fake", "")
+        try:
+            yield
+        finally:
+            _GROUP.pop("group", None)
+            if world_size > 1 and dist.is_initialized():
+                dist.destroy_process_group()
+            sys.excepthook = hook
+
+
+def _counted(fn, args, counter: StepCounter) -> StepCounter:
+    """``counter`` after ``fn`` ran once under it on meta tensors of
+    ``args``."""
+    def meta(x):
+        if isinstance(x, (ShapeDtype, torch.Tensor)):
+            return torch.empty(x.shape, dtype=x.dtype, device=META)
+        return x
+    margs = tree_map(meta, args)
+    for _, t in tree_leaves_with_paths(margs):
+        if isinstance(t, torch.Tensor):
+            counter.track(t)
+    with counter:
+        out = fn(*margs)
+    del out, margs
+    return counter
+
+
 def analyze_step(fn, args, *, world_size: int = 1, rank: int = 0,
-                 peak_top: int = 0) -> Dict[str, float]:
+                 peak_top: int = 0, writers_top: int = 0) -> Dict[str, float]:
     """Run ``fn(*args)`` once on meta tensors and count its work.
 
     ``args`` is a tree (dicts, lists, tuples) whose leaves are
@@ -379,51 +533,48 @@ def analyze_step(fn, args, *, world_size: int = 1, rank: int = 0,
     the storages live when that run's live bytes first reach the first
     run's peak, grouped by the op that wrote them (or "argument"), shape
     and dtype, as (bytes, count, op, shape, dtype): the ``peak_top``
-    groups of most bytes, largest first.
+    groups of most bytes, largest first.  ``writers_top > 0`` adds
+    ``top_writers``, the first run's :func:`top_writers` rows.
     """
-    from ..parallelism.dist import Group
-    with _LOCK:
-        if dist.is_available() and dist.is_initialized():
-            raise RuntimeError(
-                "analyze_step opens a fake default process group, and "
-                "this process already has a default group")
-        # init_process_group wraps sys.excepthook with a rank prefix;
-        # it is put back with the group
-        hook = sys.excepthook
-        if world_size > 1:
-            fake_pg = _fake_pg()
-            dist.init_process_group("fake", store=fake_pg.FakeStore(),
-                                    rank=rank, world_size=world_size)
-            _GROUP["group"] = Group(rank, world_size, META, "fake", "")
-        try:
-            def meta(x):
-                if isinstance(x, (ShapeDtype, torch.Tensor)):
-                    return torch.empty(x.shape, dtype=x.dtype, device=META)
-                return x
-            def count(counter):
-                margs = tree_map(meta, args)
-                for _, t in tree_leaves_with_paths(margs):
-                    if isinstance(t, torch.Tensor):
-                        counter.track(t)
-                with counter:
-                    out = fn(*margs)
-                del out, margs
-                return counter
-            got = count(_MetaCounter()).result()
-            if peak_top:
-                again = count(_MetaCounter(snapshot_at=int(
-                    got["peak_bytes"])))
-                if again.at_peak is None:
-                    raise RuntimeError(
-                        f"the second run peaked at {again.peak} bytes, "
-                        f"below the first's {got['peak_bytes']:.0f}")
-                got["at_peak"] = again.at_peak[:peak_top]
-            return got
-        finally:
-            _GROUP.pop("group", None)
-            if world_size > 1 and dist.is_initialized():
-                dist.destroy_process_group()
-            sys.excepthook = hook
+    with _session(world_size, rank):
+        counter = _counted(fn, args, _MetaCounter())
+        got = counter.result()
+        if writers_top:
+            got["top_writers"] = _top(counter.writers, writers_top)
+        if peak_top:
+            again = _counted(fn, args, _MetaCounter(snapshot_at=int(
+                got["peak_bytes"])))
+            if again.at_peak is None:
+                raise RuntimeError(
+                    f"the second run peaked at {again.peak} bytes, "
+                    f"below the first's {got['peak_bytes']:.0f}")
+            got["at_peak"] = again.at_peak[:peak_top]
+        return got
+
+
+def top_writers(fn, args, k: int = 15, *, world_size: int = 1,
+                rank: int = 0) -> List[tuple]:
+    """The reference's ``top_writers`` of ``fn(*args)`` run as
+    :func:`analyze_step` runs it: the ``k`` (bytes, op, shape, dtype,
+    count) rows of most bytes written, grouped by the op, the shape and
+    the dtype of the tensor written (a scatter's rows count what it
+    writes into its destination, of the destination's shape).  They sum
+    to at most ``bytes_written``, and to it where every group is
+    listed."""
+    with _session(world_size, rank):
+        return _top(_counted(fn, args, _MetaCounter()).writers, k)
+
+
+def collective_details(fn, args, k: int = 10, *, world_size: int = 1,
+                       rank: int = 0) -> List[tuple]:
+    """The reference's ``collective_details`` of ``fn(*args)`` run as
+    :func:`analyze_step` runs it: the ``k`` (payload bytes, kind, shape,
+    dtype, group size, count) rows of most payload, grouped by the
+    collective's kind (the reference's names), the shape and dtype of
+    the buffer it fills, and the size of the group it runs over (the
+    mesh axis's ranks)."""
+    with _session(world_size, rank):
+        return _top(_counted(fn, args, _MetaCounter()).payloads, k)
 
 
 # ------------------------------------------------------- a train step

@@ -52,6 +52,7 @@ def main(argv=None):
     import os
 
     import torch
+    import torch.distributed as dist
 
     from ..checkpoint.store import (load_checkpoint, load_metadata,
                                     save_checkpoint)
@@ -123,6 +124,11 @@ def main(argv=None):
                              "loss": float(m.get("loss", float("nan")))})
         say(f"saved {args.ckpt}")
     if group is not None:
+        # every rank leaves the group together: a rank that tore its gloo
+        # group down and exited while rank 0 was still writing the
+        # checkpoint aborted now and then in its exit ("terminate called
+        # without an active exception", SIGABRT), failing the launch
+        dist.barrier()
         group.destroy()
 
 

@@ -9,10 +9,10 @@ Under tensor parallelism (``parallelism.context.tp_for``) each rank
 holds its heads (and its kv heads where the rules cut them) of the
 attention projections and its ffn columns of the FFN: the block's input
 enters through ``copy_in`` and its output leaves through one all-reduce
-(``reduce_out``), Megatron's column and row splits.  A decode step at
-one position (``_decode``) runs under tensor parallelism too, and on a
-KV cache cut by kv heads, head_dim or sequence (a rules plan's decode
-state).
+(``reduce_out``), Megatron's column and row splits.  A decode step
+(``_decode``), at one position for every row or at each row's own,
+runs under tensor parallelism too, and on a KV cache cut by kv heads,
+head_dim or sequence (a rules plan's decode state).
 
 Where a decode step keeps the weights where they lie
 (``parallelism.context.contract_for``: a rules plan's decode with the
@@ -143,38 +143,26 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0,
     cache=None  -> full-sequence (train / prefill); returns (y, None), or
                    (y, {"k", "v"}) with ``return_cache``.  Sequences
                    >= 2048 use blockwise online-softmax attention.
-    cache=dict  -> single-token decode; x is (B, 1, d); cache holds k, v
-                   of shape (B, L, Kv, D); ``pos`` is the index the new
-                   token is written at: a scalar (:func:`_decode`, which
-                   also runs under tensor parallelism and on a cache
-                   part placed by ``place``, the rank's axis of each
-                   cache dim) or a (B,) tensor, each row at its own
-                   position (continuous batching, one device);
-                   ``rows``: the axis that cuts the cache's rows where
-                   x holds every row (:func:`rows_in`).
+    cache=dict  -> single-token decode (:func:`_decode`); x is (B, 1, d);
+                   cache holds k, v of shape (B, L, Kv, D); ``pos`` is
+                   the index the new token is written at, a scalar or a
+                   (B,) tensor, each row at its own position (continuous
+                   batching); ``place``: the rank's axis of each cache
+                   dim; ``rows``: the axis that cuts the cache's rows
+                   where x holds every row (:func:`rows_in`).
     attn_fn     -> fused attention for the full-sequence path:
                    (q, k, v, window) -> out.
     """
-    b, s, _ = x.shape
+    if cache is not None:
+        return _decode(p, x, cfg, window, cache,
+                       torch.as_tensor(pos, device=x.device), place, rows)
+    s = x.shape[1]
     hd = cfg.resolved_head_dim
     dev = x.device
-    if pos is not None:
-        pos = torch.as_tensor(pos, device=dev)
-    if cache is not None:
-        if pos.ndim == 0:
-            return _decode(p, x, cfg, window, cache, pos, place, rows)
-        if place is not None or tp_for("heads") is not None \
-                or tp_for("kv_heads") is not None:
-            raise NotImplementedError(
-                "per-row positions under tensor parallelism or on a cut "
-                "cache")
     if positions is None:
-        if pos is not None:
-            positions = pos[:, None].to(torch.int32)  # per-row pos
-        else:
-            positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+        positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
 
-    tp = tp_for("heads") if cache is None else None
+    tp = tp_for("heads")
     if tp is not None:
         x = C.copy_in(x, tp)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
@@ -186,62 +174,45 @@ def attention(p, x, cfg: ModelConfig, *, window: int = 0,
         k, v = k[:, :, kv_of], v[:, :, kv_of]
     scale = hd ** -0.5
 
-    if cache is None:
-        if attn_fn is not None:
-            out = attn_fn(q * scale, k, v, window)
-        elif s >= _BLOCKWISE_THRESHOLD:
-            from .blockwise import blockwise_attention
-            out = blockwise_attention(q * scale, k, v, window=window)
-        else:
-            scores = _gqa_scores(q * scale, k).float()
-            i = torch.arange(s, device=dev)[:, None]
-            j = torch.arange(s, device=dev)[None, :]
-            mask = j <= i
-            if window:
-                mask &= (i - j) < window
-            scores = torch.where(mask, scores, torch.tensor(NEG_INF, device=dev))
-            probs = torch.softmax(scores, dim=-1).to(x.dtype)
-            out = _gqa_out(probs, v)
-        y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-        if tp is not None:
-            y = C.reduce_out(y, tp)
-        if return_cache:
-            return y, {"k": kv[0], "v": kv[1]}
-        return y, None
-
-    # ----- decode at per-row positions: write each row's new k/v at its
-    # pos, attend over the cache.  The cache is updated IN PLACE (the JAX
-    # package returns new arrays, a one-hot blend for a (B,) pos); the
-    # returned dict holds the same tensors.  index_put_ writes one row
-    # per slot instead of rewriting the cache.
-    ck, cv = cache["k"], cache["v"]
-    j = torch.arange(ck.shape[1], device=dev)
-    rows = torch.arange(b, device=dev)
-    ck.index_put_((rows, pos.long()), k[:, 0].to(ck.dtype))
-    cv.index_put_((rows, pos.long()), v[:, 0].to(cv.dtype))
-    mask = j[None] <= pos[:, None]                # (B, L)
-    scores = _gqa_scores(q * scale, ck).float()   # (B,Kv,Q,1,L)
-    if window:
-        mask = mask & ((pos[:, None] - j[None]) < window)
-    scores = torch.where(mask[:, None, None, None, :], scores,
-                         torch.tensor(NEG_INF, device=dev))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = _gqa_out(probs, cv)
+    if attn_fn is not None:
+        out = attn_fn(q * scale, k, v, window)
+    elif s >= _BLOCKWISE_THRESHOLD:
+        from .blockwise import blockwise_attention
+        out = blockwise_attention(q * scale, k, v, window=window)
+    else:
+        scores = _gqa_scores(q * scale, k).float()
+        i = torch.arange(s, device=dev)[:, None]
+        j = torch.arange(s, device=dev)[None, :]
+        mask = j <= i
+        if window:
+            mask &= (i - j) < window
+        scores = torch.where(mask, scores, torch.tensor(NEG_INF, device=dev))
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = _gqa_out(probs, v)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return y, {"k": ck, "v": cv}
+    if tp is not None:
+        y = C.reduce_out(y, tp)
+    if return_cache:
+        return y, {"k": kv[0], "v": kv[1]}
+    return y, None
 
 
 def _decode(p, x, cfg: ModelConfig, window, cache, pos, place, rows=None):
-    """One decode step at the scalar ``pos``, on the rank's part of the
-    cache and of the weights.  ``place`` gives the rank's axis of each
-    cache dim (B, L, Kv, D; None: the cache whole); where it cuts the
-    rows and x holds every row (``rows``), q, k and v are projected for
-    every row, the rank attends for its rows, and the output is
-    gathered over the rows before ``wo``.  The cache is
-    updated in place (the JAX package's ``dynamic_update_slice`` returns
-    a new array); ``index_copy_`` writes one row instead of rewriting
-    it.  The cache never leaves the rank: only one token's q, k and v,
-    the scores, the softmax statistics and the attention output move.
+    """One decode step on the rank's part of the cache and of the
+    weights, at ``pos``: a scalar for every row, or a (B,) tensor of
+    each row's position (the rank's rows under the rules' batch axes,
+    ``transformer.decode_step``).  ``place`` gives the rank's axis of
+    each cache dim (B, L, Kv, D; None: the cache whole); where it cuts
+    the rows and x holds every row (``rows``), q, k and v are projected
+    for every row, the rank attends for its rows (and takes their
+    positions), and the output is gathered over the rows before ``wo``.
+    Rope takes each row's position, the mask and the window each row's.
+    The cache is updated in place (the JAX package's
+    ``dynamic_update_slice``, or its one-hot blend for a (B,) ``pos``,
+    returns a new array): one ``index_put_`` writes each row's token at
+    its position instead of rewriting the cache.  The cache never
+    leaves the rank: only one token's q, k and v, the scores, the
+    softmax statistics and the attention output move.
 
     - q, k and v are projected on the rank's heads (and kv heads) where
       the rules cut the weights, roped whole along head_dim, and then
@@ -252,11 +223,11 @@ def _decode(p, x, cfg: ModelConfig, window, cache, pos, place, rows=None):
     - head_dim cut: the scores are partial sums, all-reduced before the
       softmax; ``probs . v`` gives the rank's slice of the output.
     - sequence cut: the rank holds positions ``offset + arange(L)``,
-      which the mask and the window read; the new k and v are written
-      only by the rank that holds ``pos`` (elsewhere the row is written
-      back as it was), and the softmax is taken across the sequence's
-      ranks in fp32: the row max, then the sum of exponentials and the
-      weighted values in one all-reduce.
+      which the mask and the window read; row r's new k and v are
+      written only by the rank that holds its position (elsewhere the
+      row is written back as it was), and the softmax is taken across
+      the sequence's ranks in fp32: the row max, then the sum of
+      exponentials and the weighted values in one all-reduce.
     - The output is re-laid to ``wo``'s heads (all-gathered along
       head_dim where that was cut), and the rank's part of the output
       projection is summed over the tensor-parallel axis.
@@ -276,7 +247,8 @@ def _decode(p, x, cfg: ModelConfig, window, cache, pos, place, rows=None):
         wk, wv = C.local_slice(wk, 2, ax_d), C.local_slice(wv, 2, ax_d)
     q, k, v = rows_in(rows, *embed_in(proj, x, p["wq"], wk, wv))
     b = q.shape[0]
-    positions = pos.to(torch.int32).expand(b, 1)
+    pos = rows_in(rows, pos)[0] if pos.ndim else pos.expand(b)
+    positions = pos.to(torch.int32)[:, None]
     q = rope(q, positions, cfg.rope_theta)
     q = C.relay(C.relay(q, 2, tp, ax_k), 3, None, ax_d)
     if dim_cut:
@@ -291,23 +263,24 @@ def _decode(p, x, cfg: ModelConfig, window, cache, pos, place, rows=None):
     ck, cv = cache["k"], cache["v"]
     n = ck.shape[1]
     offset = ax_s.rank * n if ax_s is not None else 0
-    at = pos - offset
-    idx = at.clamp(0, n - 1).reshape(1).long()
-    k, v = k.to(ck.dtype), v.to(cv.dtype)
+    at = pos.long() - offset
+    idx = (torch.arange(b, device=dev), at.clamp(0, n - 1))
+    k, v = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)   # (b, Kv, D)
     if ax_s is not None:
-        owns = (at >= 0) & (at < n)
-        k = torch.where(owns, k, ck.index_select(1, idx))
-        v = torch.where(owns, v, cv.index_select(1, idx))
-    ck.index_copy_(1, idx, k)
-    cv.index_copy_(1, idx, v)
+        owns = ((at >= 0) & (at < n))[:, None, None]
+        k = torch.where(owns, k, ck[idx])
+        v = torch.where(owns, v, cv[idx])
+    ck.index_put_(idx, k)
+    cv.index_put_(idx, v)
     j = offset + torch.arange(n, device=dev)
-    mask = j <= pos
+    mask = j <= pos[:, None]                                # (b, n)
     if window:
-        mask = mask & ((pos - j) < window)
+        mask = mask & ((pos[:, None] - j) < window)
     scores = _gqa_scores(q * cfg.resolved_head_dim ** -0.5, ck)
     if ax_d is not None:
         scores = C.all_reduce(scores, ax_d)
-    scores = torch.where(mask, scores.float(), NEG_INF)  # (B,Kv,Q,1,n)
+    scores = torch.where(mask[:, None, None, None], scores.float(),
+                         NEG_INF)                           # (b,Kv,Q,1,n)
     if ax_s is None:
         out = _gqa_out(torch.softmax(scores, dim=-1).to(x.dtype), cv)
     else:

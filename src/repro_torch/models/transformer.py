@@ -41,8 +41,9 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..kernels.ops import kernel_opts
 from ..parallelism import collectives as C
-from ..parallelism.context import (bound_rules, bound_use, current_layout,
-                                   placed, shard, tp_for, use)
+from ..parallelism.context import (batch_axis, bound_rules, bound_use,
+                                   current_layout, placed, shard, tp_for,
+                                   use)
 from .config import ATTN, MLSTM, RECURRENT, RGLRU, SLSTM, SWA, ModelConfig
 from .layers import (attention, attention_spec, attn_cache_spec, embed_in,
                      embed_out, ffn, ffn_spec, rmsnorm, rmsnorm_spec)
@@ -398,13 +399,19 @@ def decode_step(params, cfg: ModelConfig, tokens, state, *,
     axes, each state leaf is the rank's part under its placement in
     ``layout`` (``launch.mesh.cache_shardings``), the logits are the
     rank's rows and vocab part, and the new state keeps the placements.
-    ``pos`` is then one scalar for every row."""
+    ``pos`` is one scalar for every row or, from ``init_decode_state(...,
+    per_row_pos=True)``, each row's own position: it lies whole on every
+    rank (its placement is ``()``), and the rank takes its rows' under
+    the batch axes."""
     opts = _resolve_opts(params, opts)
     pos = state["pos"]
+    mine = pos
+    if pos.ndim and pos.shape[0] != tokens.shape[0]:
+        mine = C.local_slice(pos, 0, batch_axis())
     x = _embed_tokens(use(params["embed"]), tokens)
     layout = current_layout()
     x, new_caches, _ = _run_groups(
-        params, cfg, x, caches=state["layers"], pos=pos, opts=opts,
+        params, cfg, x, caches=state["layers"], pos=mine, opts=opts,
         layout=None if layout is None else layout["layers"])
     x = rmsnorm(use(params["final_norm"]), x, cfg.norm_eps)
     logits = unembed(params, cfg, x)

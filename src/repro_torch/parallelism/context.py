@@ -191,6 +191,21 @@ def tp_for(logical: str):
     return ax if ax.size > 1 else None
 
 
+def batch_axis():
+    """The mesh axis (an ``Axis``) that the active rules cut the batch
+    over, where it has more than one rank, else None: the axis whose
+    ranks hold a decode step's rows of the tokens
+    (``BuiltJob.place_batch``)."""
+    rules, mesh = current_rules(), current_mesh()
+    m = rules.get("batch") if rules is not None and mesh is not None \
+        else None
+    if m is None:
+        return None
+    names = m if isinstance(m, (tuple, list)) else (m,)
+    ax = mesh.axis(tuple(a for a in mesh.names if a in names))
+    return ax if ax.size > 1 else None
+
+
 def contract_for(logical: str):
     """The mesh axis (an ``Axis``) that the rules cut ``logical`` over,
     where a decode step keeps the weights in place (``axis_rules``'

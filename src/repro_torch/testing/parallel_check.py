@@ -2,9 +2,9 @@
 ``repro.testing.parallel_check`` on process groups.
 
     PYTHONPATH=src python -m repro_torch.testing.parallel_check ARCH \\
-        --ranks N [--device cpu|cuda]
+        --ranks N [--device cuda|cpu]
     PYTHONPATH=src python -m repro_torch.testing.parallel_check ARCH \\
-        --mesh 2x2|2x1x2 [--decode] [--device cpu|cuda]
+        --mesh 2x2|2x1x2 [--decode [--per-row]] [--device cuda|cpu]
 
 spawns N ranks (gloo on the CPU, NCCL on CUDA, where rank r takes card
 r; NCCL refuses two ranks on one card) and, for every technique in the
@@ -326,6 +326,23 @@ DECODE_STEPS = 3
 DECODE_LEN, DECODE_POS, DECODE_SEED = 64, 41, 7
 
 
+def random_positions(batch: int, length: int, seed: int = 0):
+    """(batch,) int32 positions drawn from ``seed`` for a per-row decode
+    of :data:`DECODE_STEPS` steps over caches of ``length``: each row in
+    [4, length - DECODE_STEPS), row 0 below half the length (less the
+    steps) and, where there are two rows, row 1 in [length / 2,
+    length - DECODE_STEPS), so that under a sequence cut over two ranks
+    both write and a window of half the length spans both."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    half, end = length // 2, length - DECODE_STEPS
+    pos = rng.randint(4, end, batch)
+    pos[0] = rng.randint(4, half - DECODE_STEPS)
+    if batch > 1:
+        pos[1] = rng.randint(half, end)
+    return pos.astype(np.int32)
+
+
 def random_decode_state(cfg, batch: int, length: int, seed: int = 0):
     """{path: array} of a decode state's layers (the layout of
     ``init_decode_state``) in fp32, drawn from ``seed``: the KV caches
@@ -351,19 +368,21 @@ def random_decode_state(cfg, batch: int, length: int, seed: int = 0):
     return out
 
 
-def decode_case(policy: str, tokens, state_np, pos: int, length: int,
+def decode_case(policy: str, tokens, state_np, pos, length: int,
                 rules_override: Optional[dict] = None):
     """One case of :func:`decode_runs`: the state's ``policy``
     (``launch.mesh.cache_shardings``), the first tokens (B, 1), the
     whole state of KV caches of ``length`` (:func:`random_decode_state`)
-    at ``pos``, and the rules over :func:`rules_plan`'s (``{"batch":
-    None}``: every rank runs every row)."""
+    at ``pos`` (an int for every row, or each row's, (B,):
+    :func:`random_positions`), and the rules over :func:`rules_plan`'s
+    (``{"batch": None}``: every rank runs every row)."""
     return {"policy": policy, "tokens": tokens, "state": state_np,
             "pos": pos, "length": length, "rules": rules_override}
 
 
-def _decode_state(state_np, pos: int, device):
-    """The decode state tree of :func:`random_decode_state`'s arrays."""
+def _decode_state(state_np, pos, device):
+    """The decode state tree of :func:`random_decode_state`'s arrays at
+    ``pos`` (an int, or (B,) each row's)."""
     import torch
 
     from ..models.params import params_from_numpy
@@ -406,7 +425,7 @@ def decode_runs(group, cfg, params_np, cases, mesh_axes):
     coordinates, the placements of the logits' rows and vocab and of
     each state leaf, each step's logits and tokens, and its part of each
     state leaf after the last step (slash-joined path) with the final
-    ``pos``."""
+    ``pos`` (numpy; whole on every rank)."""
     import torch
     import torch.distributed as dist
 
@@ -440,7 +459,7 @@ def decode_runs(group, cfg, params_np, cases, mesh_axes):
                            placement_leaves(layout["layers"])},
                 "steps": [{"logits": lg.cpu().numpy(),
                            "tokens": t.cpu().numpy()} for lg, t in steps],
-                "pos": int(state["pos"]),
+                "pos": state["pos"].cpu().numpy(),
                 "state": {"/".join(p): t.cpu().numpy() for p, t in
                           tree_leaves_with_paths(state["layers"])}}
         parts = [None] * group.size if group.rank == 0 else None
@@ -457,8 +476,23 @@ def decode_runs_on(group, cfg, params_np, cases, meshes):
             for name, axes in meshes.items()}
 
 
+def _devices(device: str, ranks: int):
+    """The ranks' devices: card r for rank r on ``"cuda"``
+    (``resolve_device`` raises where there is no card, and a check that
+    wants more cards than there are raises), the CPU for every rank on
+    ``"cpu"``."""
+    from ..device import resolve_device
+    if resolve_device(device).type == "cpu":
+        return ["cpu"] * ranks
+    import torch
+    if torch.cuda.device_count() < ranks:
+        raise RuntimeError(f"parallel_check: {ranks} ranks need as many "
+                           f"cards (found {torch.cuda.device_count()})")
+    return [f"cuda:{r}" for r in range(ranks)]
+
+
 def check_rules(arch_id: str = "h2o-danube-3-4b", mesh: str = "2x2",
-                device: str = "cpu", tol: float = DEFAULT_TOL):
+                device: str = "cuda", tol: float = DEFAULT_TOL):
     """A rules plan on ``mesh`` (:data:`MESHES`) against the port's one
     device: one train step without and with remat (loss, every
     parameter and the gradient norm, relative, within ``tol``) and a
@@ -490,8 +524,7 @@ def check_rules(arch_id: str = "h2o-danube-3-4b", mesh: str = "2x2",
     ref_loss = float(m_ref["loss"])
     print(f"[baseline] {arch_id} loss={ref_loss:.6f}", flush=True)
     plan = rules_plan(cfg, mesh_axes)
-    devices = [f"cuda:{r}" if device == "cuda" else "cpu"
-               for r in range(plan.n_devices)]
+    devices = _devices(device, plan.n_devices)
     got = spawn(rules_runs, devices, cfg, opt_cfg, params_np,
                 {k: v.numpy() for k, v in batch.items()}, mesh_axes,
                 WARM_STEPS)
@@ -544,10 +577,12 @@ def check_rules(arch_id: str = "h2o-danube-3-4b", mesh: str = "2x2",
     return results
 
 
-def decode_cases(cfg, batch: int = 8):
+def decode_cases(cfg, batch: int = 8, per_row: bool = False):
     """:func:`check_decode`'s cases: both cache policies at ``batch`` and,
     for a long-context arch, at B 1 with the batch left whole; an MoE
-    arch also takes the optimized preset's decode overrides."""
+    arch also takes the optimized preset's decode overrides.  With
+    ``per_row`` every row decodes from its own position
+    (:func:`random_positions`), else all from :data:`DECODE_POS`."""
     import numpy as np
 
     from ..launch.dryrun import optimized_overrides
@@ -558,21 +593,25 @@ def decode_cases(cfg, batch: int = 8):
         tokens = np.random.RandomState(DECODE_SEED + 100 + b).randint(
             0, cfg.vocab_size, (b, 1)).astype(np.int32)
         rules = None if b == batch else {"batch": None}
+        pos = random_positions(b, DECODE_LEN, DECODE_SEED + b) if per_row \
+            else DECODE_POS
         for policy in ("heads", "seq"):
             cases[f"{policy}-b{b}"] = decode_case(
-                policy, tokens, state, DECODE_POS, DECODE_LEN, rules)
+                policy, tokens, state, pos, DECODE_LEN, rules)
         if cfg.is_moe and b == batch:
             kw = optimized_overrides(cfg, INPUT_SHAPES["decode_32k"])
             cases[f"optimized-b{b}"] = decode_case(
-                kw.get("cache_policy", "heads"), tokens, state, DECODE_POS,
+                kw.get("cache_policy", "heads"), tokens, state, pos,
                 DECODE_LEN, kw.get("rules_override"))
     return cases
 
 
 def check_decode(arch_id: str = "h2o-danube-3-4b", mesh: str = "2x2",
-                 device: str = "cpu", tol: float = DEFAULT_TOL):
+                 device: str = "cuda", tol: float = DEFAULT_TOL,
+                 per_row: bool = False):
     """Decode under a rules plan on ``mesh`` (:data:`MESHES`) against the
-    port's one device, for each of :func:`decode_cases`:
+    port's one device, for each of :func:`decode_cases` (each row from
+    its own position with ``per_row``):
     :data:`DECODE_STEPS` greedy steps from a random state, each step's
     tokens equal and every rank's part of its logits and, after the
     last step, of each state leaf within ``tol`` of the output's
@@ -595,9 +634,8 @@ def check_decode(arch_id: str = "h2o-danube-3-4b", mesh: str = "2x2",
     params, _ = base.init(42)
     params_np = {"/".join(p): t.numpy().copy()
                  for p, t in tree_leaves_with_paths(params)}
-    cases = decode_cases(cfg)
-    devices = [f"cuda:{r}" if device == "cuda" else "cpu"
-               for r in range(4)]
+    cases = decode_cases(cfg, per_row=per_row)
+    devices = _devices(device, 4)
     t0 = time.perf_counter()
     got = spawn(decode_runs, devices, cfg, params_np, cases, mesh_axes)
     spawn_s = time.perf_counter() - t0
@@ -625,9 +663,11 @@ def check_decode(arch_id: str = "h2o-danube-3-4b", mesh: str = "2x2",
                 diff = max(diff, worst(v, expected_part(
                     full[k], v.shape, part["coords"], mesh_axes, None,
                     part["layout"][k])))
+        same &= all(np.array_equal(part["pos"], state["pos"].numpy())
+                    for part in got[name])
         ok = same and diff < tol
         print(f"[decode {mesh} {name}] policy={case['policy']} "
-              f"rules={case['rules']} tokens_equal={same} "
+              f"rules={case['rules']} per_row={per_row} tokens_equal={same} "
               f"max_rel_diff={diff:.2e} {'OK' if ok else 'FAIL'}",
               flush=True)
         results.append({"check": f"decode {mesh} {name}", "ok": ok,
@@ -638,7 +678,7 @@ def check_decode(arch_id: str = "h2o-danube-3-4b", mesh: str = "2x2",
 
 
 def check(arch_id: str = "h2o-danube-3-4b", ranks: int = 2,
-          device: str = "cpu", tol: float = DEFAULT_TOL):
+          device: str = "cuda", tol: float = DEFAULT_TOL):
     """The reference's contract on ``ranks`` ranks; returns one result a
     technique in the search space (its loss, the loss's and the largest
     parameter's distance from the baseline, and whether both are within
@@ -671,8 +711,7 @@ def check(arch_id: str = "h2o-danube-3-4b", ranks: int = 2,
         if t.name not in names:
             print(f"[{t.name}] not in search space for {arch_id}@{ranks} "
                   "— skipped", flush=True)
-    devices = [f"cuda:{r}" if device == "cuda" else "cpu"
-               for r in range(ranks)]
+    devices = _devices(device, ranks)
     got = spawn(technique_steps, devices, cfg, opt_cfg, params_np,
                 {k: v.numpy() for k, v in batch.items()}, names, True)
     p_bytes = 4.0 * sum(v.size for v in ref.values())
@@ -710,20 +749,21 @@ def main(argv=None) -> int:
     ap.add_argument("--decode", action="store_true",
                     help="with --mesh: greedy decode steps under the rules "
                          "plan in place of the train step and prefill")
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--per-row", action="store_true",
+                    help="with --decode: each row from its own position")
+    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
+                    help="cuda: rank r on card r (NCCL); cpu: gloo ranks")
     ap.add_argument("--tol", type=float, default=DEFAULT_TOL)
     args = ap.parse_args(argv)
     ranks = 4 if args.mesh else args.ranks
-    if args.device == "cuda":
-        import torch
-        if torch.cuda.device_count() < ranks:
-            print(f"parallel_check: {ranks} ranks need as many cards "
-                  f"(found {torch.cuda.device_count()})", file=sys.stderr)
-            return 2
     if args.decode and not args.mesh:
         ap.error("--decode needs --mesh")
+    if args.per_row and not args.decode:
+        ap.error("--per-row needs --decode")
+    _devices(args.device, ranks)
     if args.decode:
-        results = check_decode(args.arch, args.mesh, args.device, args.tol)
+        results = check_decode(args.arch, args.mesh, args.device, args.tol,
+                               args.per_row)
     elif args.mesh:
         results = check_rules(args.arch, args.mesh, args.device, args.tol)
     else:

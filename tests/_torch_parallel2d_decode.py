@@ -15,14 +15,20 @@ cut).  The weights are the JAX init with wq, wk and wv rescaled
 its KV caches of length L 64, drawn by ``random_decode_state`` (finite
 stabilizers) in the layout of the JAX package's ``init_decode_state``,
 at ``pos`` 41: under a sequence cut over model the write lands on model
-rank 1, and the window of 32 spans both model ranks.  Three greedy
-steps follow, each feeding back the argmax, on the ranks and in JAX:
+rank 1, and the window of 32 spans both model ranks.  A per-row case
+(``rows`` in its name) starts each row at its own position
+(``random_positions``: row 0 below L/2 - 3, row 1 at L/2 or above, so
+that under a sequence cut over model both model ranks write, and row
+1's window spans both), held against JAX's ``init_decode_state(...,
+per_row_pos=True)`` at the same positions.  Three greedy steps follow,
+each feeding back the argmax, on the ranks and in JAX:
 
 - each step's tokens equal, and each rank's part of its logits (its
   rows, its vocab part) within LOGITS_ATOL 1e-4
   (tests/_torch_parallel2d.py);
 - after the last step each rank's part of every state leaf within
-  STATE_REL 5e-5 of the leaf's largest value, its ``pos`` 44.
+  STATE_REL 5e-5 of the leaf's largest value, its ``pos`` 44 (per row:
+  each row's start + 3, whole on every rank).
 """
 import jax
 import jax.numpy as jnp
@@ -38,7 +44,8 @@ from repro_torch.parallelism.dist import spawn
 from repro_torch.testing.parallel_check import (DECODE_STEPS, MESHES,
                                                 decode_case, decode_runs_on,
                                                 expected_part,
-                                                random_decode_state)
+                                                random_decode_state,
+                                                random_positions)
 
 L, POS = 64, 41
 
@@ -48,23 +55,39 @@ def _key(path):
                     for p in path)
 
 
-def jax_state(jcfg, batch, state_np):
+def start_pos(batch, per_row):
+    """A case's first positions: POS, or each row's (seeded by B)."""
+    return random_positions(batch, L, seed=200 + batch) if per_row else POS
+
+
+def jax_state(jcfg, batch, state_np, pos=POS):
     """The JAX package's ``init_decode_state`` in fp32 with the arrays of
-    ``state_np`` (its layout: every path and shape must agree)."""
-    init = jt.init_decode_state(jcfg, batch, L, jnp.float32)
+    ``state_np`` (its layout: every path and shape must agree) at
+    ``pos``: an int, or each row's ((B,), ``per_row_pos=True``)."""
+    per_row = np.ndim(pos) > 0
+    init = jt.init_decode_state(jcfg, batch, L, jnp.float32,
+                                per_row_pos=per_row)
     flat = {k: v for k, v in _flatten_with_paths(init).items() if k != "pos"}
     assert {k: v.shape for k, v in flat.items()} == \
         {k: v.shape for k, v in state_np.items()}
     state = jax.tree_util.tree_map_with_path(
         lambda p, x: jnp.asarray(state_np[_key(p)]) if _key(p) != "pos"
         else x, init)
-    state["pos"] = jnp.asarray(POS, jnp.int32)
+    assert state["pos"].shape == np.shape(pos)
+    state["pos"] = jnp.asarray(pos, jnp.int32)
     return state
 
 
+def _case(spec):
+    """(policy, B, rules, per_row) of a case's (policy, B, rules[,
+    per_row])."""
+    return tuple(spec) + (False,) * (4 - len(spec))
+
+
 class DecodeRuns:
-    """One arch's spawn over ``cases`` (name -> (policy, B, rules)) and
-    the JAX decode of each batch, made on first use."""
+    """One arch's spawn over ``cases`` (name -> (policy, B, rules[,
+    per_row])) and the JAX decode of each batch and start, made on first
+    use."""
 
     def __init__(self, arch, cases):
         self.arch, self.cases = arch, cases
@@ -74,31 +97,39 @@ class DecodeRuns:
         if self._done is None:
             self._done = self._run()
         d = self._done
-        policy, b, _ = self.cases[name]
+        _, b, _, per_row = _case(self.cases[name])
         return {"cfg": d["cfg"], "parts": d["got"][mesh][name],
-                "jax": d["jax"][b], "mesh": mesh}
+                "jax": d["jax"][b, per_row], "mesh": mesh,
+                "start": start_pos(b, per_row)}
 
     def _run(self):
         jcfg, cfg = _cfgs(self.arch)
         jparams = _rescale(jcfg, jt.init_model(jcfg, jax.random.PRNGKey(1)))
         step = jax.jit(lambda p, t, s: jt.decode_step(p, jcfg, t, s))
         inputs, ref = {}, {}
-        for b in sorted({b for _, b, _ in self.cases.values()}):
+        for b, per_row in sorted({_case(c)[1::2]
+                                  for c in self.cases.values()}):
             state_np = random_decode_state(cfg, b, L, seed=b)
             tokens = np.random.RandomState(100 + b).randint(
                 0, cfg.vocab_size, (b, 1)).astype(np.int32)
-            inputs[b] = (tokens, state_np)
-            state, tok, steps = jax_state(jcfg, b, state_np), tokens, []
+            pos = start_pos(b, per_row)
+            inputs[b, per_row] = (tokens, state_np, pos)
+            state, tok, steps = jax_state(jcfg, b, state_np, pos), tokens, []
             for _ in range(DECODE_STEPS):
                 logits, state = step(jparams, tok, state)
                 tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
                 steps.append({"logits": np.asarray(logits, np.float32),
                               "tokens": np.asarray(tok)})
-            ref[b] = {"steps": steps, "pos": int(state["pos"]),
-                      "state": {k: np.asarray(v, np.float32) for k, v in
-                                _flatten_with_paths(state["layers"]).items()}}
-        cases = {name: decode_case(policy, *inputs[b], POS, L, rules)
-                 for name, (policy, b, rules) in self.cases.items()}
+            ref[b, per_row] = {
+                "steps": steps, "pos": np.asarray(state["pos"]),
+                "state": {k: np.asarray(v, np.float32) for k, v in
+                          _flatten_with_paths(state["layers"]).items()}}
+        cases = {}
+        for name, spec in self.cases.items():
+            policy, b, rules, per_row = _case(spec)
+            tokens, state_np, pos = inputs[b, per_row]
+            cases[name] = decode_case(policy, tokens, state_np, pos, L,
+                                      rules)
         got = spawn(decode_runs_on, ["cpu"] * 4, cfg,
                     _flatten_with_paths(jparams), cases, MESHES,
                     timeout_s=SPAWN_TIMEOUT_S)
@@ -134,7 +165,9 @@ def check_state(case, cut=()):
     mesh_axes = MESHES[case["mesh"]]
     full = case["jax"]["state"]
     for part in case["parts"]:
-        assert part["pos"] == case["jax"]["pos"] == POS + DECODE_STEPS
+        np.testing.assert_array_equal(part["pos"], case["jax"]["pos"])
+        np.testing.assert_array_equal(part["pos"],
+                                      case["start"] + DECODE_STEPS)
         assert set(part["state"]) == set(full)
         for k, v in part["state"].items():
             want = expected_part(full[k], v.shape, part["coords"],

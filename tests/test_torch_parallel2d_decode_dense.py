@@ -12,7 +12,10 @@ from _torch_parallel2d_decode import DecodeRuns, check_state, check_steps
 
 CASES = {"heads-b8": ("heads", 8, None), "seq-b8": ("seq", 8, None),
          "heads-b1": ("heads", 1, {"batch": None}),
-         "seq-b1": ("seq", 1, {"batch": None})}
+         "seq-b1": ("seq", 1, {"batch": None}),
+         "heads-b8-rows": ("heads", 8, None, True),
+         "seq-b8-rows": ("seq", 8, None, True),
+         "seq-b1-rows": ("seq", 1, {"batch": None}, True)}
 MESHES = ["2x2", "2x1x2"]
 
 

@@ -17,7 +17,11 @@ from repro_torch.models.config import INPUT_SHAPES
 ARCH = "olmoe-1b-7b"
 _OPT = optimized_overrides(get_config(ARCH), INPUT_SHAPES["decode_32k"])
 CASES = {"heads-b8": ("heads", 8, None),
-         "optimized-b8": (_OPT["cache_policy"], 8, _OPT["rules_override"])}
+         "optimized-b8": (_OPT["cache_policy"], 8, _OPT["rules_override"]),
+         "heads-b8-rows": ("heads", 8, None, True),
+         "seq-b8-rows": ("seq", 8, None, True),
+         "optimized-b8-rows": (_OPT["cache_policy"], 8,
+                               _OPT["rules_override"], True)}
 MESHES = ["2x2", "2x1x2"]
 
 

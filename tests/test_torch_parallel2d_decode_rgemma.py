@@ -10,7 +10,10 @@ import pytest
 from _torch_parallel2d_decode import DecodeRuns, check_state, check_steps
 
 CASES = {"heads-b8": ("heads", 8, None),
-         "heads-b1": ("heads", 1, {"batch": None})}
+         "heads-b1": ("heads", 1, {"batch": None}),
+         "heads-b8-rows": ("heads", 8, None, True),
+         "seq-b8-rows": ("seq", 8, None, True),
+         "seq-b1-rows": ("seq", 1, {"batch": None}, True)}
 MESHES = ["2x2", "2x1x2"]
 
 

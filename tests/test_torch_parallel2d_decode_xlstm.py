@@ -9,7 +9,9 @@ import pytest
 
 from _torch_parallel2d_decode import DecodeRuns, check_state, check_steps
 
-CASES = {"b8": ("heads", 8, None), "b1": ("heads", 1, {"batch": None})}
+CASES = {"b8": ("heads", 8, None), "b1": ("heads", 1, {"batch": None}),
+         "b8-rows": ("heads", 8, None, True),
+         "b1-rows": ("seq", 1, {"batch": None}, True)}
 MESHES = ["2x2", "2x1x2"]
 
 

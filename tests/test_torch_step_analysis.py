@@ -26,6 +26,20 @@ against the JAX package's compiled-HLO analyzer
   metrics (loss, aux loss) averaged with them.
 - No default group is left after an analysis, and an analysis inside
   an existing group raises.
+- A scatter counts what it writes into its destination, not the
+  destination, as the reference counts a dynamic-update-slice's update
+  operand: one hand count for each scatter op.  One decode step of
+  h2o-danube-3-4b reduced (4 layers, window 32, B 2, fp32) counts its KV
+  cache writes at the token's size, so its ``bytes_written`` at L 1024
+  exceeds L 64's by exactly what grows with L outside them (the
+  scores, the probs, the mask and einsum's copies of the cache parts
+  for its two products), and stands at 0.152 of the reference's
+  ``analyze()`` of the same step at L 64 (0.217 when the writes counted
+  the whole cache; the reference's fusions also write relaid weights).
+- ``top_writers`` and ``collective_details``: the rows of the counter's
+  record by op, sorted, summing to at most the totals, with the cache
+  writes at the update's size and a tp step's all-reduce named with its
+  group's size on two gloo ranks.
 """
 import datetime
 import math
@@ -43,7 +57,8 @@ from repro.core.profiler import TrialRunner as JTrialRunner
 from repro.launch import hlo_analysis as H
 from repro_torch.configs import concrete_batch, get_config
 from repro_torch.launch import step_analysis as S
-from repro_torch.models.params import param_count, tree_leaves_with_paths
+from repro_torch.models.params import (ShapeDtype, param_count,
+                                       tree_leaves_with_paths)
 from repro_torch.models.transformer import model_spec
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallelism.build import BuiltJob
@@ -286,3 +301,251 @@ def test_peak_top_groups_the_bytes_live_at_the_peak():
     assert got[("aten.mm.default", (8, 32))] == (2 * 8 * 32 * 4, 2)
     assert got[("aten.relu.default", (8, 32))] == (8 * 32 * 4, 1)
     assert len(S.analyze_step(fn, args, peak_top=1)["at_peak"]) == 1
+
+
+# ------------------------------------------------ scatters and writers
+
+def _meta_scatter(op):
+    """(fn, args, bytes it writes into its destination) of each scatter
+    op counted by its update: an fp32 destination (4, 8, 3)."""
+    f32 = lambda *shape: ShapeDtype(shape, torch.float32)
+    i64 = lambda *shape: ShapeDtype(shape, torch.int64)
+    dest = f32(4, 8, 3)
+    aten = torch.ops.aten
+    cases = {
+        # (rows, positions) picks 4 of the 32 (row, position) slots, each
+        # 3 wide: values (4, 3)
+        "index_put_": (lambda x, r, p, v: x.index_put_((r, p), v),
+                       (dest, i64(4), i64(4), f32(4, 3)), 4 * 3 * 4),
+        "_index_put_impl_": (
+            lambda x, r, p, v: aten._index_put_impl_(x, [r, None, p], v),
+            (dest, i64(2), i64(2), f32(2, 8)), 2 * 8 * 4),
+        "index_copy_": (lambda x, i, v: x.index_copy_(1, i, v),
+                        (dest, i64(2), f32(4, 2, 3)), 4 * 2 * 3 * 4),
+        "index_add_": (lambda x, i, v: x.index_add_(1, i, v),
+                       (dest, i64(5), f32(4, 5, 3)), 4 * 5 * 3 * 4),
+        "scatter_": (lambda x, i, v: x.scatter_(1, i, v),
+                     (dest, i64(4, 2, 3), f32(4, 2, 3)), 4 * 2 * 3 * 4),
+        "scatter_.value": (lambda x, i: x.scatter_(1, i, 2.0),
+                           (dest, i64(4, 6, 3)), 4 * 6 * 3 * 4),
+        "scatter_add_": (lambda x, i, v: x.scatter_add_(1, i, v),
+                         (dest, i64(4, 1, 3), f32(4, 1, 3)), 4 * 1 * 3 * 4),
+        "scatter_reduce_": (
+            lambda x, i, v: x.scatter_reduce_(1, i, v, "amax"),
+            (dest, i64(2, 8, 3), f32(2, 8, 3)), 2 * 8 * 3 * 4),
+        # on meta the mask's true count would need data: source counts
+        "masked_scatter_": (
+            lambda x, m, v: x.masked_scatter_(m, v),
+            (dest, ShapeDtype((4, 8, 3), torch.bool), f32(7)), 7 * 4),
+    }
+    return cases[op]
+
+
+SCATTERS = ["index_put_", "_index_put_impl_", "index_copy_",
+            "index_add_", "scatter_", "scatter_.value", "scatter_add_",
+            "scatter_reduce_", "masked_scatter_"]
+
+
+@pytest.mark.parametrize("op", SCATTERS)
+def test_a_scatter_counts_its_update_not_its_destination(op):
+    fn, args, want = _meta_scatter(op)
+    got = S.analyze_step(fn, args, writers_top=10)
+    assert got["bytes_written"] == want
+    (n, name, shape, dtype, count), = got["top_writers"]
+    assert (n, shape, dtype, count) == (want, (4, 8, 3), torch.float32, 1)
+    assert name.startswith("aten." + op.split(".")[0] + ".")
+    # the destination stays live as before: it is an argument
+    assert got["peak_bytes"] == sum(
+        math.prod(a.shape) * a.dtype.itemsize for a in args)
+
+
+def test_an_out_of_place_index_put_counts_the_tensor_it_makes():
+    """``torch.index_put`` copies its destination into a fresh tensor
+    and writes the update there: the whole new tensor counts, though
+    the indexed shape (2, 8, 3) is a half of it."""
+    dest = ShapeDtype((4, 8, 3), torch.float32)
+    args = (dest, ShapeDtype((2,), torch.int64),
+            ShapeDtype((1,), torch.float32))
+    got = S.analyze_step(lambda x, r, v: torch.index_put(x, (r,), v),
+                         args, writers_top=10)
+    assert got["bytes_written"] == 4 * 8 * 3 * 4
+    assert got["top_writers"] == [
+        (4 * 8 * 3 * 4, "aten.index_put.default", (4, 8, 3),
+         torch.float32, 1)]
+    assert got["peak_bytes"] == sum(
+        math.prod(a.shape) * a.dtype.itemsize for a in args) + 4 * 8 * 3 * 4
+
+
+def test_a_masked_scatter_on_the_cpu_counts_the_masks_true_elements():
+    x = torch.zeros(4, 8, 3)
+    mask = torch.zeros(4, 8, 1, dtype=torch.bool)
+    mask[1, 2] = mask[3, 5] = mask[0, 0] = True       # 3 x 3 broadcast
+    counter = S.StepCounter()
+    with counter:
+        x.masked_scatter_(mask, torch.ones(20))
+    assert counter.result()["bytes_written"] == 3 * 3 * 4 + 20 * 4
+    assert counter.writers[("aten.masked_scatter_.default", (4, 8, 3),
+                            torch.float32)] == [3 * 3 * 4, 1]
+
+
+def test_a_bool_index_on_the_cpu_counts_its_true_elements():
+    x = torch.zeros(6, 5)
+    rows = torch.tensor([True, False, True, True, False, False])
+    counter = S.StepCounter()
+    with counter:
+        x.index_put_((rows,), torch.ones(5))
+    assert counter.writers[("aten.index_put_.default", (6, 5),
+                            torch.float32)] == [3 * 5 * 4, 1]
+
+
+DEC_ARCH, DEC_B, DEC_LAYERS = "h2o-danube-3-4b", 2, 4
+
+
+def _decode_analysis(L, per_row=False):
+    """analyze_step of one port decode step of reduced DEC_ARCH in fp32
+    over caches of L, with its writers."""
+    from repro_torch.models.params import ShapeDtype, tree_map
+    from repro_torch.models.transformer import (decode_state_spec,
+                                                decode_step)
+    cfg = get_config(DEC_ARCH).reduced(num_layers=DEC_LAYERS)
+    params = tree_map(lambda s: ShapeDtype(s.shape, torch.float32),
+                      model_spec(cfg))
+    state = tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype),
+                     decode_state_spec(cfg, DEC_B, L, torch.float32))
+    if per_row:
+        state["pos"] = ShapeDtype((DEC_B,), torch.int32)
+    step = lambda p, t, s: decode_step(p, cfg, t, s, opts={})
+    return cfg, S.analyze_step(step, (params, ShapeDtype((DEC_B, 1),
+                                                         torch.int32),
+                                      state), writers_top=1000)
+
+
+@pytest.mark.parametrize("per_row", [False, True],
+                         ids=["scalar-pos", "per-row-pos"])
+def test_a_decode_step_writes_its_cache_at_the_tokens_size(per_row):
+    """At L 64 and at L 1024 the cache writes are the same: two
+    ``index_put_`` a layer of one token's k or v (B, Kv, D).  The rest
+    of the difference is what each attention layer computes over L:
+    einsum's contiguous copies of k and of v for the two products
+    (a clone and its ``_unsafe_view``, each B Kv D L fp32), the scores,
+    their masked copy and the probs (B H L fp32 each), and the mask:
+    the positions (L int64, twice: arange and its offset), each row's
+    distance from them (B L int64) and three (B L) bools."""
+    cfg, small = _decode_analysis(64, per_row)
+    _, large = _decode_analysis(1024, per_row)
+    b, h, kv = DEC_B, cfg.num_heads, cfg.num_kv_heads
+    d, layers = cfg.resolved_head_dim, DEC_LAYERS
+    assert set(cfg.block_pattern) == {"swa"} and cfg.window_size
+    for got, L in ((small, 64), (large, 1024)):
+        rows = [r for r in got["top_writers"]
+                if r[1] == "aten.index_put_.default"]
+        assert [r[2] for r in rows] == [(b, L, kv, d)]
+        assert rows[0][0] == 2 * layers * b * kv * d * 4
+        assert rows[0][4] == 2 * layers
+    per_l = (4 * b * kv * d * 4        # copies of k and v for einsum
+             + 3 * b * h * 4           # scores, masked scores, probs
+             + 2 * 8 + b * 8 + 3 * b)  # the mask
+    assert large["bytes_written"] - small["bytes_written"] == \
+        layers * per_l * (1024 - 64)
+
+
+def test_a_decode_steps_bytes_written_against_the_reference():
+    """The port's one decode step (scalar pos, L 64) against the
+    reference's ``analyze()`` of its compiled ``decode_step``: 0.152 of
+    it (counting every eager op, the cache writes at the token's size;
+    XLA's fusions write the relaid weights and whole cache parts), with
+    the flops equal."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jget
+    from repro.models import transformer as jt
+    jcfg = jget(DEC_ARCH).reduced(num_layers=DEC_LAYERS)
+    params = jax.tree.map(
+        lambda s: jax.ShapeDtypeStruct(s.shape, jnp.float32),
+        jax.eval_shape(lambda: jt.init_model(jcfg, jax.random.PRNGKey(0))))
+    state = jax.eval_shape(
+        lambda: jt.init_decode_state(jcfg, DEC_B, 64, jnp.float32))
+    hlo = jax.jit(lambda p, t, s: jt.decode_step(p, jcfg, t, s)).lower(
+        params, jax.ShapeDtypeStruct((DEC_B, 1), jnp.int32),
+        state).compile().as_text()
+    want = H.analyze(hlo)
+    _, got = _decode_analysis(64)
+    assert got["flops"] == want["flops"]
+    ratio = got["bytes_written"] / want["bytes_written"]
+    assert 0.14 <= ratio <= 0.165, ratio
+
+
+def test_top_writers_rows_are_the_counters_record_sorted():
+    from repro_torch.models.params import ShapeDtype
+
+    def fn(x, w, cache, v):
+        y = torch.relu(x @ w) + x @ w
+        cache.index_copy_(1, torch.tensor([3]), v)
+        return y * 2
+
+    args = (ShapeDtype((8, 16), torch.float32), torch.zeros(16, 32),
+            ShapeDtype((8, 64, 32), torch.float32),
+            ShapeDtype((8, 1, 32), torch.float32))
+    rows = S.top_writers(fn, args, k=20)
+    total = S.analyze_step(fn, args)["bytes_written"]
+    assert [r[0] for r in rows] == sorted((r[0] for r in rows),
+                                          reverse=True)
+    assert sum(r[0] for r in rows) == total
+    got = {(op, shape): (n, c) for n, op, shape, _, c in rows}
+    assert got[("aten.mm.default", (8, 32))] == (2 * 8 * 32 * 4, 2)
+    assert got[("aten.index_copy_.default", (8, 64, 32))] == (8 * 32 * 4, 1)
+    two = S.top_writers(fn, args, k=2)
+    assert two == rows[:2] and sum(r[0] for r in two) <= total
+
+
+def _tp_step_details(group):
+    """On each gloo rank of two: one tp x2 train step of reduced
+    h2o-danube-3-4b under the counting mode; rank 0's collective
+    details and totals."""
+    cfg = get_config("h2o-danube-3-4b").reduced(num_layers=2)
+    plan = [t for t in DEFAULT_TECHNIQUES if t.name == "tp"][0].plan(cfg, 2)
+    built = BuiltJob(cfg, plan, AdamWConfig(**OPT), group=group)
+    params, opt = built.init(0)
+    batch = concrete_batch(cfg, GROUP_B, GROUP_S, device="cpu")
+    counter = S.StepCounter()
+    with counter:
+        built.step(params, opt, built.place_batch(batch))
+    return {"rows": S._top(counter.payloads, 100),
+            "result": counter.result()}
+
+
+def test_collective_details_name_a_tp_steps_all_reduce():
+    """A tp x2 step on two gloo ranks and its analysis as rank 0 of a
+    fake group of two give the same rows: the all-reduces (Megatron's
+    row-split outputs and their gradients) over a group of 2, sorted by
+    payload and summing to the all-reduce total."""
+    real = spawn(_tp_step_details, ["cpu"] * 2, timeout_s=240.0)
+    cfg = get_config("h2o-danube-3-4b").reduced(num_layers=2)
+    plan = [t for t in DEFAULT_TECHNIQUES if t.name == "tp"][0].plan(cfg, 2)
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    def step(params, opt, batch):
+        with _disable_current_modes():
+            built = BuiltJob(cfg, plan, AdamWConfig(**OPT), device=S.META,
+                             group=S.current_group())
+        return built.step(params, opt, built.place_batch(batch))
+
+    rows = S.collective_details(
+        step, S.train_step_inputs(cfg, plan, GROUP_B, GROUP_S), k=100,
+        world_size=2)
+    assert not dist.is_initialized()
+    assert rows == real["rows"]
+    kinds = {r[1] for r in rows}
+    assert "all-reduce" in kinds
+    assert all(r[4] == 2 for r in rows)
+    assert [r[0] for r in rows] == sorted((r[0] for r in rows),
+                                          reverse=True)
+    by_kind = {}
+    for n, kind, *_ in rows:
+        by_kind[kind] = by_kind.get(kind, 0) + n
+    coll = real["result"]["collectives"]
+    assert by_kind == {k: v for k, v in coll.items() if k != "total"}
+    assert S.collective_details(
+        step, S.train_step_inputs(cfg, plan, GROUP_B, GROUP_S), k=1,
+        world_size=2) == rows[:1]
