@@ -95,6 +95,10 @@ removed after each phase):
 - ``saturn_profile``: the empirical Trial Runner, one warm-up and two
   timed steps at ``ddp`` x1 and ``remat-offload`` x1, against the
   card's own ``HardwareSpec``;
+- ``saturn_roofline_loops``: the step analyzer on the whole
+  xlstm-125m's ``ddp`` x1 train step at B 16, S 1024 and 2048: each
+  analysis's wall seconds and dispatched ops, gated equal at the two
+  lengths (each time loop counted once and charged for its trips);
 - ``saturn_roofline``: the roofline strategy on that runner, its two
   trials the calibration, every other count up to 8 of the probe and of
   a held-out job at B 16 predicted from one step analysis each (each
@@ -201,6 +205,8 @@ PAR_DECODE_STEPS = 4
 # dryrun_one / dryrun_decode: (arch, shape, multi_pod, preset) of the dry
 # run's combinations
 DRYRUN_ONE = ("gemma3-4b", "train_4k", False, "baseline")
+# saturn_roofline_loops: the batch of its whole-xlstm-125m analyses
+ROOFLINE_LOOPS_B = 16
 DRYRUN_DECODE = (("stablelm-12b", "decode_32k", False, "optimized"),
                  ("h2o-danube-3-4b", "long_500k", False, "baseline"),
                  ("olmoe-1b-7b", "decode_32k", False, "optimized"))
@@ -1888,6 +1894,31 @@ def from_analysis(runner, job, prof):
         prof.terms.get("hlo_base_n", prof.n_devices) == prof.n_devices
 
 
+def roofline_loops():
+    """The step analyzer on the whole xlstm-125m's ``ddp`` x1 train step
+    at B 16 and S 1024 and 2048: both lengths take the chunked mLSTM,
+    and with each time loop counted once and charged for its trips the
+    analyzer dispatches the same ops at both (gated)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.step_analysis import analyze_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallelism.techniques import DDP
+    cfg = get_config("xlstm-125m")
+    got = {}
+    for seq in (1024, 2048):
+        t0 = time.perf_counter()
+        a = analyze_train_step(cfg, DDP().plan(cfg, 1), AdamWConfig(),
+                               ROOFLINE_LOOPS_B, seq)
+        got[str(seq)] = {"wall_s": time.perf_counter() - t0,
+                         "dispatched_ops": a["dispatched_ops"],
+                         "flops": a["flops"], "peak_gb": a["peak_bytes"] / 1e9}
+    ops = {v["dispatched_ops"] for v in got.values()}
+    if len(ops) != 1:
+        raise AssertionError(f"saturn_roofline_loops: {got}")
+    return {"config": cfg.name, "technique": "ddp", "devices": 1,
+            "batch": ROOFLINE_LOOPS_B, "by_seq": got}
+
+
 def saturn_roofline(runner, probes):
     """The roofline strategy on saturn_profile's runner: its two
     empirical x1 trials of the probe (cache hits) are the calibration,
@@ -2537,6 +2568,8 @@ def saturn_phases(smi):
     info, probes, runner = saturn_profile(hw)
     emit("saturn_profile", nvidia_smi=smi, **info,
          kernel_launches=check_no_launches("saturn_profile"))
+    emit("saturn_roofline_loops", nvidia_smi=smi, **roofline_loops(),
+         kernel_launches=check_no_launches("saturn_roofline_loops"))
     emit("saturn_roofline", nvidia_smi=smi,
          **saturn_roofline(runner, probes),
          kernel_launches=check_no_launches("saturn_roofline"))

@@ -12,8 +12,9 @@ configs never straddle nodes).  --online staggers job arrivals by
 --arrival-gap seconds: the dynamic model-selection scenario the paper's
 introspection mechanism is built for — policies replan as jobs arrive.
 No card is needed: the Trial Runner traces each trial's step on meta
-tensors on the host CPU (tens of minutes: the xLSTM jobs replay every
-step of their sLSTM recurrence).
+tensors on the host CPU (each time loop of the xLSTM jobs counted once
+and charged for its trips), about a minute in all on two cores at the
+default flags.
 """
 import argparse
 import dataclasses

@@ -7,9 +7,9 @@ package.
 Registers a custom technique, submits a small model-selection workload,
 profiles it (Trial Runner), solves the joint MILP, and simulates
 execution vs Current Practice.  No card is needed: the Trial Runner
-traces each trial's step on meta tensors on the host CPU, which for
-xlstm-125m at S 1024 replays every step of its sLSTM recurrence (tens
-of seconds an analysis, 72 analyses).
+traces each trial's step on meta tensors on the host CPU (72 analyses;
+each time loop of the xlstm-125m jobs is counted once and charged for
+its trips), about a minute in all on two cores.
 """
 import os
 import sys

@@ -3,15 +3,13 @@ JAX package's ``launch/hlo_analysis.py``.
 
 XLA's ``compiled.cost_analysis()`` counts a while-loop body once, so the
 reference parses the compiled HLO text, recovers each loop's trip count
-and propagates it through the call graph.  PyTorch compiles no HLO, but
-eager dispatch is unrolled by nature: every layer, every step of a
-recurrence and every remat recompute passes through the dispatcher.  So
-one traced step gives what the reference's trip-count propagation
-recovers.  :func:`analyze_step` runs ``fn(*args)`` once on tensors of
-the ``meta`` device, which carry shapes and dtypes and no data (no card
-and no memory needed; the training step runs no CUDA kernel, and a
-kernel wrapper refuses a meta tensor), and counts, from a dispatch mode
-below autograd:
+(``_trip_count``) and multiplies the body's cost by it through the call
+graph (``computation_multipliers``).  PyTorch compiles no HLO: every op
+of a step passes through the dispatcher.  :func:`analyze_step` runs
+``fn(*args)`` once on tensors of the ``meta`` device, which carry shapes
+and dtypes and no data (no card and no memory needed; the training step
+runs no CUDA kernel, and a kernel wrapper refuses a meta tensor), and
+counts, from a dispatch mode below autograd:
 
 - ``flops``: 2·M·N·K over the matmul family, the reference's ``dot``
   rule; a convolution is 2 × output elements × 64, the reference's rough
@@ -35,6 +33,30 @@ shape, dtype) wrote and each collective's payload by (kind, shape,
 dtype, group size), from which :func:`top_writers` and
 :func:`collective_details` give the reference's "where is the memory
 term coming from" views of a step.
+
+The time loops of the port's models are the counterparts of the
+reference's ``lax.scan`` calls, and run through ``models.scan.scan``:
+the sLSTM recurrence (``models.recurrent.slstm_block``), the
+batched-gradient sLSTM scan's forward, its recompute and its reverse
+loop (``models.slstm_scan``), the chunked mLSTM's chunk loop and both
+loops of ``blockwise_attention`` (``models.blockwise``).  The trip
+count is the loop's own ``n``, known before it runs.  On meta tensors
+the counter (:class:`_MetaCounter`) counts a loop of n >= 5 trips from
+four of them: the first (its carry comes from outside and needs no
+gradient, so autograd skips products there) and the last (its outputs
+leave the loop) run as they are; trip 1's forward and trip n - 2's
+backward are each counted once and charged n - 4 more times, flops,
+bytes, collectives and the records' bytes and counts alike; loops
+nested in a charged trip multiply.  Autograd's engine runs a graph's
+nodes in the reverse order of their creation, so a trip's backward runs
+as one window, which pre-hooks on the grad_fns of the trips' outputs
+delimit; a remat recompute runs the loop again and is counted the same
+way.  The live bytes the charged trips would hold stay counted (each
+storage of trip 1 carries its counterparts' bytes to where it is
+freed), so ``peak_bytes`` is the full replay's.  The ops an analysis
+dispatches (``dispatched_ops``) no longer grow with the sequence length.
+On tensors with data every trip runs, op for op: :class:`StepCounter`
+on real tensors replays every step and is the tests' oracle.
 
 ``world_size > 1`` opens a default process group of the ``"fake"``
 backend (``torch.testing._internal.distributed.fake_pg``) as ``rank``
@@ -70,6 +92,7 @@ import torch.distributed as dist
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _disable_current_modes)
 
+from ..models import scan
 from ..models.params import ShapeDtype, tree_leaves_with_paths, tree_map
 
 _LOCK = threading.Lock()
@@ -307,6 +330,13 @@ class StepCounter(TorchDispatchMode):
         self.at_peak: Optional[List[tuple]] = None
         self._what: Dict[int, tuple] = {}
         self._func = None
+        # loop-aware counting (``models.scan``): the bytes each storage
+        # carries for its charged counterparts [(loop name, bytes)], and
+        # the loops now running forward or backward
+        self._riders: Dict[int, List[tuple]] = {}
+        self._open: Dict[str, int] = {}
+        self._serial = 0
+        self.dispatched = 0
 
     def track(self, t: torch.Tensor) -> None:
         """Count ``t``'s storage as live until it is freed."""
@@ -315,34 +345,121 @@ class StepCounter(TorchDispatchMode):
         if key in self._storages:
             return
         n = st.nbytes()
+        self._serial += 1
         self._storages[key] = (n, weakref.ref(st, lambda _, k=key:
-                                              self._free(k)))
+                                              self._free(k)), self._serial)
         self.live += n
-        if self.live > self.peak:
-            self.peak = self.live
         if self.snapshot_at is not None:
             self._what[key] = (str(self._func or "argument"),
                                tuple(t.shape), t.dtype)
-            if self.at_peak is None and self.live >= self.snapshot_at:
-                groups: Dict[tuple, List[int]] = {}
-                for k, w in self._what.items():
-                    g = groups.setdefault(w, [0, 0])
-                    g[0] += self._storages[k][0]
-                    g[1] += 1
-                self.at_peak = sorted(((n, c) + w for w, (n, c)
-                                       in groups.items()),
-                                      key=lambda e: e[0], reverse=True)
+        self._reach(self.live)
+
+    def _reach(self, live: int) -> None:
+        """Live bytes of ``live`` at some moment: the peak, and with
+        ``snapshot_at`` the groups live when it is first reached (the
+        bytes of charged loop trips as one group)."""
+        if live > self.peak:
+            self.peak = live
+        if (self.snapshot_at is None or self.at_peak is not None
+                or live < self.snapshot_at):
+            return
+        groups: Dict[tuple, List[int]] = {}
+        for k, w in self._what.items():
+            g = groups.setdefault(w, [0, 0])
+            g[0] += self._storages[k][0]
+            g[1] += 1
+        rest = live - sum(n for n, _ in groups.values())
+        if rest > 0:
+            groups[("charged loop trips", (), None)] = [rest, 0]
+        self.at_peak = sorted(((n, c) + w for w, (n, c) in groups.items()),
+                              key=lambda e: e[0], reverse=True)
 
     def _free(self, key: int) -> None:
         entry = self._storages.pop(key, None)
         if entry is not None:
             self.live -= entry[0]
             self._what.pop(key, None)
+        for name, n in self._riders.pop(key, ()):
+            # freed outside its loop: its counterparts go with it
+            if not self._open.get(name):
+                self.live -= n
+
+    # ------------------------------------------------ loop-aware counting
+    #
+    # ``models.scan`` runs four trips of a loop and has one trip's
+    # forward and another's backward charged for the rest (see its
+    # docstring).  A count in progress is the counter's record;
+    # ``loop_begin`` sets it aside and starts a fresh one for the trip,
+    # ``loop_end`` adds the trip's record 1 + k times back.
+
+    def _swap_record(self, record):
+        old = (self.flops, self.bytes_written, self.collectives,
+               self.writers, self.payloads)
+        (self.flops, self.bytes_written, self.collectives, self.writers,
+         self.payloads) = record or (0.0, 0.0, {}, {}, {})
+        return old
+
+    def _add_record(self, record, k: int) -> None:
+        flops, written, coll, writers, payloads = record
+        self.flops += k * flops
+        self.bytes_written += k * written
+        for kind, n in coll.items():
+            self.collectives[kind] = self.collectives.get(kind, 0.0) + k * n
+        for mine, theirs in ((self.writers, writers),
+                             (self.payloads, payloads)):
+            for key, (n, c) in theirs.items():
+                entry = mine.setdefault(key, [0, 0])
+                entry[0] += k * n
+                entry[1] += k * c
+
+    def loop_window(self, name: str, step: int) -> None:
+        """Open (+1) or close (-1) a window in which loop ``name`` runs
+        forward or backward."""
+        self._open[name] = self._open.get(name, 0) + step
+
+    def loop_begin(self):
+        """Start counting one trip apart: its record, and the live bytes
+        it leaves and their peak."""
+        token = (self._swap_record(None), self.live, self.peak, self._serial)
+        self.peak = self.live
+        return token
+
+    def loop_end(self, token, k: int, name: str, forward: bool) -> None:
+        """End the trip begun with ``token`` and charge it ``k`` more
+        times, each charged trip starting where the one before left the
+        live bytes.  ``forward``: the storages the trip left alive carry
+        their k counterparts' bytes (see :meth:`_free`)."""
+        outer, live0, peak0, serial0 = token
+        record = self._swap_record(outer)
+        self._add_record(record, 1 + k)
+        delta, bump = self.live - live0, self.peak - live0
+        self.peak = max(peak0, self.peak)
+        if not k:
+            return
+        # the charged trips' peaks lie on a line through the trip's;
+        # where the live bytes grow from trip to trip, the last is highest
+        if delta > 0:
+            self._reach(live0 + k * delta + bump)
+        self.live += k * delta
+        if not forward:
+            return
+        for key in reversed(self._storages):
+            n, _, serial = self._storages[key]
+            if serial <= serial0:
+                break
+            riders = self._riders.setdefault(key, [])
+            riders.append((name, k * (n + sum(r[1] for r in riders))))
 
     # the cyclic collector frees what a cycle holds at a moment that
     # depends on the process's allocation history; it is paused while the
-    # mode counts, so the peak of live bytes depends on the step alone
+    # mode counts, so the peak of live bytes depends on the step alone.
+    # A dispatch mode's first call in a process imports ``torch._dynamo``
+    # (``TorchDispatchMode`` wraps ``__torch_dispatch__`` in
+    # ``torch._disable_dynamo``), and the import leaves the frames then on
+    # the stack in a cycle, their locals alive until the collector runs:
+    # it is imported here, before the collector is paused.
     def __enter__(self):
+        import torch._dynamo  # noqa: F401
         self._gc = gc.isenabled()
         gc.disable()
         return super().__enter__()
@@ -365,6 +482,7 @@ class StepCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        self.dispatched += 1
         op = self._ops.get(func)
         if op is None:
             op = self._ops[func] = _Op(func)
@@ -424,7 +542,19 @@ class _MetaCounter(StepCounter):
     kernels it can: an in-place op leaves its meta tensor as it is, and
     a functional op whose output shapes are memoised gets fresh meta
     tensors of them (only where its kernel's outputs own plain
-    storages, so that the live bytes are the kernel's)."""
+    storages of their own, so that the live bytes are the kernel's).
+    It is the loop-aware counter of ``models.scan`` while it counts."""
+
+    def __enter__(self):
+        self._loops = scan.counting(self)
+        self._loops.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self._loops.__exit__(None, None, None)
 
     def _run(self, func, op, args, kwargs):
         if op.kind == "inplace":
@@ -446,9 +576,14 @@ class _MetaCounter(StepCounter):
             if len(_MEMO) > _MEMO_MAX:
                 _MEMO.clear()
             outs = _tensors(out)
+            # an op whose schema says fresh but whose output is its
+            # input's storage (``_unsafe_view``) is run each time
+            ins = {t.untyped_storage()._cdata
+                   for t in _tensors(list(args) + list(kwargs.values()))}
             _MEMO[key] = [(o.shape, o.stride(), o.dtype, o.device)
                           for o in outs] \
-                if all(map(_plain_storage, outs)) else False
+                if all(_plain_storage(o) and o.untyped_storage()._cdata
+                       not in ins for o in outs) else False
         return out
 
 
@@ -539,6 +674,7 @@ def analyze_step(fn, args, *, world_size: int = 1, rank: int = 0,
     with _session(world_size, rank):
         counter = _counted(fn, args, _MetaCounter())
         got = counter.result()
+        got["dispatched_ops"] = counter.dispatched
         if writers_top:
             got["top_writers"] = _top(counter.writers, writers_top)
         if peak_top:

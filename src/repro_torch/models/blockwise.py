@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .scan import scan
+
 NEG_INF = -1e30
 
 
@@ -37,14 +39,12 @@ def blockwise_attention(q, k, v, *, window: int = 0, q_chunk: int = 512,
     kr = k.reshape(b, nk, kv_chunk, kvh, d).permute(1, 0, 3, 2, 4)
     vr = v.reshape(b, nk, kv_chunk, kvh, d).permute(1, 0, 3, 2, 4)
 
-    outs = []
-    for qi in range(nq):
+    def q_trip(qi, _):
         qc = qr[qi]
         q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
-        m = torch.full((b, kvh, qpk, q_chunk), NEG_INF, device=dev)
-        l = torch.zeros((b, kvh, qpk, q_chunk), device=dev)
-        acc = torch.zeros((b, kvh, qpk, q_chunk, d), device=dev)
-        for kj in range(nk):
+
+        def kv_trip(kj, carry):
+            m, l, acc = carry
             k_pos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
             scores = torch.einsum("bkqcd,bked->bkqce", qc, kr[kj]).float()
             mask = k_pos[None, :] <= q_pos[:, None]
@@ -58,11 +58,18 @@ def blockwise_attention(q, k, v, *, window: int = 0, q_chunk: int = 512,
             l = l * corr + p.sum(-1)
             acc = acc * corr[..., None] + torch.einsum(
                 "bkqce,bked->bkqcd", p, vr[kj].float())
-            m = m_new
+            return (m_new, l, acc), None
+
+        init = (torch.full((b, kvh, qpk, q_chunk), NEG_INF, device=dev),
+                torch.zeros((b, kvh, qpk, q_chunk), device=dev),
+                torch.zeros((b, kvh, qpk, q_chunk, d), device=dev))
+        (_, l, acc), _ = scan(kv_trip, init, nk, name="attention_kv")
         out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.to(q.dtype))
+        return (), out.to(q.dtype)
+
     # (nq, B, Kv, Q, qc, D) -> (B, S, H, D)
-    return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, s, h, d)
+    _, outs = scan(q_trip, (), nq, name="attention_q", stack=("stack", 0))
+    return outs.permute(1, 0, 4, 2, 3, 5).reshape(b, s, h, d)
 
 
 def mlstm_chunked(q, k, v, i_pre, f_pre, *, chunk: int = 256,
@@ -85,9 +92,10 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, *, chunk: int = 256,
     C = torch.zeros((b, h, d, d), device=dev)
     n = torch.zeros((b, h, d), device=dev)
     m = torch.full((b, h), NEG_INF, device=dev)
-    outs = []
-    for c0 in range(0, s, chunk):
-        sl = slice(c0, c0 + chunk)
+
+    def trip(i, carry):
+        C, n, m = carry
+        sl = slice(i * chunk, (i + 1) * chunk)
         qt, kt, vt = q[:, sl], k[:, sl], v[:, sl]        # (B,L,H,D)
         it, lft = it_all[:, sl], lf_all[:, sl]           # (B,L,H)
         cum = torch.cumsum(lft, dim=1)                   # inclusive
@@ -108,7 +116,7 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, *, chunk: int = 256,
         h_intra = torch.einsum("bljh,bjhv->blhv", cmat, vt.float())
         n_total = torch.sum(cmat, dim=2) + n_inter
         denom = torch.maximum(torch.abs(n_total), torch.exp(-m_i))
-        outs.append(((h_intra + h_inter) / denom[..., None]).to(q.dtype))
+        out = ((h_intra + h_inter) / denom[..., None]).to(q.dtype)
         # ---- state update
         m_next = torch.maximum(g + m, torch.amax(it + g[:, None] - cum, dim=1))
         decay = torch.exp(g + m - m_next)                # (B,H)
@@ -117,6 +125,8 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, *, chunk: int = 256,
         C = decay[..., None, None] * C + torch.einsum(
             "blh,blhk,blhv->bhkv", w_in, k32, vt.float())
         n = decay[..., None] * n + torch.einsum("blh,blhk->bhk", w_in, k32)
-        m = m_next
-    out = torch.cat(outs, dim=1)
+        return (C, n, m_next), out
+
+    (C, n, m), out = scan(trip, (C, n, m), s // chunk, name="mlstm_chunked",
+                          stack=("cat", 1))
     return (out, (C, n, m)) if return_final else out

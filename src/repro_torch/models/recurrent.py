@@ -41,6 +41,7 @@ from .blockwise import mlstm_chunked
 from .config import ModelConfig
 from .layers import embed_in, embed_out, rmsnorm_spec, rows_in, rows_out
 from .params import P
+from .scan import scan
 from .slstm_scan import slstm_scan, step_core
 
 # ------------------------------------------------------------ causal conv
@@ -437,11 +438,10 @@ def slstm_block(p, x, cfg: ModelConfig, state: Optional[dict] = None,
         carry, hs = slstm_scan(p, gates.transpose(0, 1), carry)
         h = hs.transpose(0, 1)
     else:
-        hs = []
-        for t in range(s):
+        def trip(t, carry):
             carry = _slstm_step(p, carry, gates[:, t])
-            hs.append(carry[3])
-        h = torch.stack(hs, dim=1)
+            return carry, carry[3]
+        carry, h = scan(trip, carry, s, name="slstm", stack=("stack", 1))
     if return_state:
         c, n, m, h_last = carry
         return _slstm_out(p, h, tp), \

@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .scan import scan
+
 
 def _stack_r(rz, ri, rf, ro):
     """(H, E, D) x 4 -> W (H, D, 4E) with W[h, d, 4e + g] = R_g[h, e, d]."""
@@ -95,16 +97,12 @@ def _scan(w, gates, c, n, m, h):
     """The forward scan over gates (S,B,H,D,4).  Returns the final
     (c, n, m, h) and the sequences of the states each step starts from:
     h_prev (S,B,H,D) in h's dtype and c, n, m in float32."""
-    hs, cs, ns, ms = [], [], [], []
-    for t in range(gates.shape[0]):
-        hs.append(h)
-        cs.append(c)
-        ns.append(n)
-        ms.append(m)
-        c, n, m, hf = step_core(*_pres(w, gates[t], h).unbind(-1), c, n, m)
-        h = hf.to(h.dtype)
-    seqs = [torch.stack(x) for x in (hs, cs, ns, ms)]
-    return (c, n, m, h), seqs
+    def trip(t, carry):
+        c, n, m, h = carry
+        c2, n2, m2, hf = step_core(*_pres(w, gates[t], h).unbind(-1), c, n, m)
+        return (c2, n2, m2, hf.to(h.dtype)), (h, c, n, m)
+    return scan(trip, (c, n, m, h), gates.shape[0], name="slstm_scan",
+                stack=("stack", 0))
 
 
 class _SlstmScan(torch.autograd.Function):
@@ -133,7 +131,8 @@ class _SlstmScan(torch.autograd.Function):
         s, b, nh, d = h_prev.shape
         dpres_seq = torch.empty(gates.shape, dtype=torch.float32,
                                 device=gates.device)
-        for t in range(s - 1, -1, -1):
+        def trip(t, carry):
+            dc, dn, dm, dh = carry
             pres = _pres(w, gates[t], h_prev[t])
             dpres, dc, dn, dm = _step_vjp(pres, c_prev[t], n_prev[t],
                                           m_prev[t], dc, dn, dm,
@@ -142,6 +141,9 @@ class _SlstmScan(torch.autograd.Function):
             # dh_prev through pres = gx + h R
             dh = torch.bmm(dpres.view(b, nh, 4 * d).transpose(0, 1),
                            w32.transpose(1, 2)).transpose(0, 1)
+            return (dc, dn, dm, dh), None
+        (dc, dn, dm, dh), _ = scan(trip, (dc, dn, dm, dh), s,
+                                   name="slstm_scan_back", reverse=True)
         # the point of this module: ONE product over (S, B) for dR
         dw = torch.einsum("sbhd,sbhk->hdk", h_prev.float(),
                           dpres_seq.view(s, b, nh, 4 * d))

@@ -4,9 +4,9 @@ subprocess, on the CPU (``--device cpu``), at small flags, each under
 its own timeout.  Each must exit 0 and print its lines, and neither
 ``jax`` nor the JAX package (``repro``, or a ``repro.`` module) may be
 loaded in the child when it exits.  With ``--device cuda`` and no card
-an example raises.  The two profiling examples have no flag that makes
-them cheap (their analytic profile takes tens of minutes of host CPU):
-they run on the chip host, and here are only loaded.
+an example raises.  The two profiling examples run at their default
+flags in files of their own (``test_torch_example_quickstart.py``,
+``test_torch_example_model_selection.py``); here each is loaded.
 """
 import os
 import subprocess
@@ -63,11 +63,8 @@ def check(out):
 @pytest.mark.parametrize("name", ["torch_quickstart.py",
                                   "torch_model_selection.py"])
 def test_a_profiling_example_loads_only_the_port(tmp_path, name):
-    """The two profiling examples run for tens of minutes of host CPU
-    at their flags (the Trial Runner's analytic profile of xlstm-125m
-    at S 1024), so they run on the chip host, not here: here each is
-    loaded as a module, and must define ``main`` with neither ``jax``
-    nor the JAX package loaded."""
+    """Each profiling example, loaded as a module, defines ``main``
+    with neither ``jax`` nor the JAX package loaded."""
     out = subprocess.run(
         [sys.executable, "-c", LOADER, os.path.join(ROOT, "examples", name)],
         capture_output=True, text=True, timeout=60, cwd=tmp_path,

@@ -13,7 +13,11 @@ against the JAX package's compiled-HLO analyzer
   xLSTM differs by exactly the four recurrent matvecs a sLSTM layer's
   scan transpose runs at t = 0 for the initial carry's cotangent
   (dh_0 = sum over the gates of d_pre R), which autograd skips because
-  h_0 needs no gradient.
+  h_0 needs no gradient.  At S 1024 and 2048, where the mLSTM runs chunk
+  by chunk, the difference adds the chunk loop's terms, named in
+  ``mlstm_chunk_flops``: the first chunk's zero carry and the last
+  chunk's unused state update, and contractions the two frameworks lay
+  out differently.
 - Collectives: every technique of h2o-danube-3-4b reduced at N 4 and of
   xlstm-125m reduced at N 2, analysed as rank 0 of a fake group, counts
   the collective payloads by kind and the flops that the same counting
@@ -137,13 +141,13 @@ def test_scale_analysis_work_and_payload():
 
 # ------------------------------------------------------- flops at n = 1
 
-def jax_hlo_analysis(arch, num_layers=LAYERS):
+def jax_hlo_analysis(arch, num_layers=LAYERS, seq=SEQ):
     """(analyze() of the compiled one-device ddp step, its
     cost_analysis() flops), lowered as the reference's Trial Runner
     lowers it: fp32 parameters and AdamW state, ``concrete_batch``."""
     jcfg = jax_get_config(arch).reduced(num_layers=num_layers)
     runner = JTrialRunner(JLibrary())
-    job = JJob("a", jcfg, B, SEQ, 10)
+    job = JJob("a", jcfg, B, seq, 10)
     plan = JLibrary().get("ddp").plan(jcfg, 1)
     cost = runner._compiled_step(job, plan).cost_analysis()
     if isinstance(cost, (list, tuple)):
@@ -151,10 +155,10 @@ def jax_hlo_analysis(arch, num_layers=LAYERS):
     return runner._hlo_analysis(job, plan), float(cost["flops"])
 
 
-def port_analysis(arch, num_layers=LAYERS):
+def port_analysis(arch, num_layers=LAYERS, seq=SEQ):
     cfg = get_config(arch).reduced(num_layers=num_layers)
     return S.analyze_train_step(cfg, DDP().plan(cfg, 1),
-                                AdamWConfig(**OPT), B, SEQ)
+                                AdamWConfig(**OPT), B, seq)
 
 
 def slstm_t0_matvec_flops(arch, num_layers=LAYERS):
@@ -167,6 +171,41 @@ def slstm_t0_matvec_flops(arch, num_layers=LAYERS):
     return n_slstm * 4 * 2.0 * B * cfg.num_heads * d * d
 
 
+def mlstm_chunk_flops(arch, seq, num_layers=LAYERS, chunk=256):
+    """What the reference's ``analyze()`` counts beyond the port in the
+    mLSTM layers where the chunked form runs (S > 512), over nc = S /
+    chunk chunks of L = chunk, head dim D: the JAX scan transpose runs
+    the same body every trip, autograd skips products no gradient
+    needs, and the two frameworks lay some contractions out
+    differently.  A layer's share, in products of 2 B H L D^2 and of
+    2 B H L D flops:
+
+    - the reference's L D^2 products: the gradient of the first chunk's
+      zero C carry through h_inter (1), and of the last chunk's C update
+      with respect to (w_in k) and to v (2), which the final state gets
+      none of in training;
+    - the reference's L D products: the gradient of the first chunk's
+      zero n carry through n_inter (1) and of the last chunk's n update
+      with respect to w_in (1); in every chunk the C update's gradient
+      with respect to w_in, a dot over D in the reference and a multiply
+      and sum in the port (nc);
+    - the port's L D products, run by ``bmm`` over a contracted dim of
+      1 where the reference broadcasts a multiply: n_inter's gradient
+      with respect to q in every chunk (nc), and the n update's with
+      respect to k in every chunk but the last (nc - 1)."""
+    cfg = get_config(arch).reduced(num_layers=num_layers)
+    n_mlstm = sum(kinds.count("mlstm") * reps
+                  for _, kinds, reps in cfg.layer_plan())
+    h = cfg.num_heads
+    d = 2 * cfg.d_model // h
+    nc = seq // chunk
+    ldd = 2.0 * B * h * chunk * d * d
+    ld = 2.0 * B * h * chunk * d
+    reference = 3 * ldd + (1 + 1 + nc) * ld
+    port = (nc + nc - 1) * ld
+    return n_mlstm * (reference - port)
+
+
 @pytest.mark.parametrize("arch", FLOPS_ARCHS)
 def test_flops_match_the_hlo_analysis(arch):
     want, _ = jax_hlo_analysis(arch)
@@ -176,6 +215,20 @@ def test_flops_match_the_hlo_analysis(arch):
     assert want["flops"] - got["flops"] == slstm_t0_matvec_flops(arch)
     assert got["collectives"] == {"total": 0.0}
     assert got["bytes_written"] > 0 and got["peak_bytes"] > 0
+
+
+@pytest.mark.parametrize("seq", [1024, 2048])
+def test_xlstm_flops_match_the_hlo_analysis_with_the_chunked_mlstm(seq):
+    """Above S 512 the mLSTM runs chunk by chunk (4 and 8 chunks here),
+    and the reference counts the sLSTM's t = 0 matvecs and the chunk
+    loop's terms of ``mlstm_chunk_flops`` beyond the port, to the
+    flop."""
+    arch = "xlstm-125m"
+    want, _ = jax_hlo_analysis(arch, seq=seq)
+    got = port_analysis(arch, seq=seq)
+    assert got["flops"] == pytest.approx(want["flops"], rel=FLOPS_RTOL)
+    assert want["flops"] - got["flops"] == \
+        slstm_t0_matvec_flops(arch) + mlstm_chunk_flops(arch, seq)
 
 
 # ------------------------------------------------ collectives at n > 1
