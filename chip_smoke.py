@@ -27,7 +27,9 @@ weights from a seed, in bf16:
 
 Flash attention is also held against its plain version at the head dims
 the kernels pad (D 120, h2o-danube-3-4b; D 160, stablelm-12b) in both
-dtypes, and the sLSTM kernel at the xLSTM shape in fp32 as well.  Before
+dtypes, and timed with SDPA beside it at D 64, 128 and 256 at fixed FLOPs
+and at the D 64 configs' heads (``flash_d_sweep``); the sLSTM kernel is
+held at the xLSTM shape in fp32 as well.  Before
 any of that, each of the four wrappers is shown to refuse a CUDA input
 that requires grad while grad mode is on, and to launch under
 ``torch.no_grad()``.
@@ -339,6 +341,30 @@ def kernel_case(fa, plain, gen, b, s, h, kv, d, window, dtype, tol):
             "plain_ms": time_ms(lambda: plain(q, k, v, window)),
             "library_ms": time_ms(lambda: sdpa(q, k, v, window)),
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def flash_d_sweep(gen):
+    """Flash attention at B 4 x S 4096, window 0, bf16, with SDPA beside
+    it: at D 64, 128 and 256 with H * D = 2048 and Kv = H (the same
+    FLOPs), then at the heads of the D 64 configs, internvl2-1b and
+    musicgen-medium, which run no model on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    cases = []
+    for d in (64, 128, 256):
+        h = 2048 // d
+        cases.append({"fixed_flops": True, **kernel_case(
+            flash_attention, flash_attention_plain, gen, PREFILL_B,
+            PREFILL_S, h, h, d, 0, torch.bfloat16, 2e-2)})
+    for arch in ("internvl2-1b", "musicgen-medium"):
+        c = get_config(arch)
+        cases.append({"config": arch, **kernel_case(
+            flash_attention, flash_attention_plain, gen, PREFILL_B,
+            PREFILL_S, c.num_heads, c.num_kv_heads, c.resolved_head_dim, 0,
+            torch.bfloat16, 2e-2)})
+    return cases
 
 
 def mlstm_case(kern, plain, gen, b, s, h, d, dtype, strided=False):
@@ -2634,13 +2660,20 @@ def main():
     cases = []
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         # the shapes of tests/test_kernels.py, then two with a ragged
-        # last tile (S not a multiple of 64) at the model's head_dim, and
-        # two at the head dims the kernels pad (120 to 128, 160 to 192)
+        # last tile (S not a multiple of 64) at the model's head_dim, two
+        # at the head dims the kernels pad (120 to 128, 160 to 192), and
+        # the persistent kernel's 128-key tiles at D 128 and 64: S not a
+        # multiple of 128, windows that cut a tile, internvl2-1b's 7:1 GQA
+        # and musicgen-medium's MHA
         for s, h, kv, d, w in [(256, 4, 4, 64, 0), (256, 4, 2, 64, 0),
                                (512, 8, 1, 32, 0), (256, 4, 2, 64, 100),
                                (384, 2, 2, 128, 128), (200, 4, 2, 256, 0),
                                (300, 8, 4, 256, 100), (200, 4, 2, 120, 0),
-                               (300, 8, 4, 160, 100)]:
+                               (300, 8, 4, 160, 100), (200, 4, 4, 128, 0),
+                               (300, 8, 4, 128, 0), (300, 4, 4, 128, 100),
+                               (384, 4, 2, 128, 192), (200, 4, 4, 64, 0),
+                               (300, 14, 2, 64, 0), (300, 14, 2, 64, 192),
+                               (384, 24, 24, 64, 100)]:
             cases.append(kernel_case(flash_attention, flash_attention_plain,
                                      gen, 2, s, h, kv, d, w, dtype, tol))
     cfg = get_config("gemma3-4b")
@@ -2668,6 +2701,10 @@ def main():
                             tol)
             head_dim_cases.append({"config": arch, **c})
     emit("flash_head_dims", cases=head_dim_cases)
+
+    # ---------------------- flash attention across head dims, bf16
+    emit("flash_d_sweep", cases=flash_d_sweep(gen))
+    torch.cuda.empty_cache()                     # the plain versions' scores
 
     # -------------------------------------------------------- small check
     small = cfg.reduced()                        # 6 layers

@@ -5,9 +5,11 @@ package's Pallas kernel: q (B, S, H, D) pre-scaled, k and v (B, S, Kv, D),
 out (B, S, H, D) in q's dtype; query head h reads kv head h // (H // Kv).
 
 On a CUDA tensor it launches the hand-written kernel in
-``csrc/flash_attention.cu`` or raises.  On a CPU tensor it runs the plain
-version, ``flash_attention_plain``, which computes the same function in
-float32.  ``flash_attention.launches`` counts kernel launches.
+``csrc/flash_attention.cu`` (the bf16 kernel at D <= 128 takes its
+counters from ``workspace``) or raises.  On a CPU tensor
+it runs the plain version, ``flash_attention_plain``, which computes the
+same function in float32.  ``flash_attention.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -41,9 +43,26 @@ def _lib():
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
-            [ctypes.c_void_p]
+            [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     return fn
+
+
+_WORKSPACES = {}
+
+
+def workspace(q, stream):
+    """The kernel's scratch for q on ``stream``: at bf16 and D <= 128 two
+    int32 counters of the persistent kernel, zeroed once and left at zero
+    by every launch, so each stream keeps its own; else None."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] > 128:
+        return None
+    key = (q.device, stream.cuda_stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        ws = _WORKSPACES[key] = torch.zeros(2, dtype=torch.int32,
+                                            device=q.device)
+    return ws
 
 
 def _aligned(x):
@@ -75,10 +94,12 @@ def flash_attention(q, k, v, window: int = 0):
         raise ValueError("flash_attention: q, k and v on different devices")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device)
+    ws = workspace(q, stream)
     fn = _lib()
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, s, h, kvh, d, int(window), _DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             stream.cuda_stream, None if ws is None else ws.data_ptr())
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {err}")

@@ -36,6 +36,10 @@ def _qkv(seed, b, s, h, kv, d):
     (512, 8, 1, 32, 0, 128, 128),     # MQA
     (256, 4, 2, 64, 100, 64, 64),     # sliding window
     (384, 2, 2, 128, 128, 128, 128),  # window == block
+    (256, 4, 4, 128, 0, 128, 128),    # olmoe-1b-7b's heads: D 128, H = Kv
+    (256, 14, 2, 64, 0, 128, 128),    # internvl2-1b's heads: D 64, 7:1 GQA
+    (512, 4, 2, 128, 128, 128, 64),   # D 128, window == a 128-key tile
+    (384, 4, 4, 128, 192, 128, 128),  # D 128, a window cutting a tile
 ])
 def test_flash_attention_matches_pallas(dtype, s, h, kv, d, window, bq, bk):
     jdt, tdt, tol = _DT[dtype]
