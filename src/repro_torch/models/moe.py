@@ -36,6 +36,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import spans
 from ..parallelism import collectives as C
 from ..parallelism.context import shard, tp_for
 from .config import ModelConfig
@@ -139,21 +140,34 @@ def combine(y, routes: Routes, first_expert: int = 0):
 
 def moe_ffn(p, x, cfg: ModelConfig):
     """x: (B, S, d) -> (out, aux_loss).  Every expert computes its whole
-    (C, d) slab, padding slots included."""
-    routes = route(p, x, cfg, moe_capacity(cfg, x.shape[1]))
+    (C, d) slab, padding slots included.  The spans ``moe.route``,
+    ``moe.dispatch``, ``moe.experts`` and ``moe.combine`` tile the
+    function; under a profiler each forward counts the kept (token, k)
+    pairs, the slab rows and the pairs (``moe.pairs_kept``,
+    ``moe.slots``, ``moe.pairs``)."""
+    with spans.span("moe.route"):
+        routes = route(p, x, cfg, moe_capacity(cfg, x.shape[1]))
+        if spans.counting():
+            spans.count("moe.pairs_kept", (routes.slot_of_pair >= 0).sum())
+            spans.count("moe.slots", routes.tok_of_slot.numel())
+            spans.count("moe.pairs", routes.slot_of_pair.numel())
     b, e, cap = routes.tok_of_slot.shape
     d = x.shape[-1]
-    xg = x.gather(1, routes.tok_of_slot.reshape(b, e * cap, 1)
-                  .expand(-1, -1, d)).reshape(b, e, cap, d)
-    xg = shard(xg, "batch", "experts", None, None)
-    g, u = embed_in(lambda x_, w: torch.einsum("becd,edf->becf", x_, w), xg,
-                    p["wi_gate"], p["wi_up"])
-    y = torch.einsum("becf,efd->becd", F.silu(g) * u, p["wo"])  # (B,E,C,d)
-    y = shard(y, "batch", "experts", None, None)
-    w = shard(routes.w_of_slot, "batch", "experts", None)
-    y = y * w[..., None].to(y.dtype)
-    tp = tp_for("experts")
-    if tp is None:
-        return embed_out(combine(y, routes)), routes.aux.mean()
-    out = combine(y, routes, first_expert=tp.rank * y.shape[1])
-    return embed_out(C.reduce_out(out, tp)), routes.aux.mean()
+    with spans.span("moe.dispatch"):
+        xg = x.gather(1, routes.tok_of_slot.reshape(b, e * cap, 1)
+                      .expand(-1, -1, d)).reshape(b, e, cap, d)
+        xg = shard(xg, "batch", "experts", None, None)
+    with spans.span("moe.experts"):
+        g, u = embed_in(lambda x_, w: torch.einsum("becd,edf->becf", x_, w),
+                        xg, p["wi_gate"], p["wi_up"])
+        y = torch.einsum("becf,efd->becd", F.silu(g) * u,
+                         p["wo"])                            # (B,E,C,d)
+        y = shard(y, "batch", "experts", None, None)
+        w = shard(routes.w_of_slot, "batch", "experts", None)
+        y = y * w[..., None].to(y.dtype)
+    with spans.span("moe.combine"):
+        tp = tp_for("experts")
+        if tp is None:
+            return embed_out(combine(y, routes)), routes.aux.mean()
+        out = combine(y, routes, first_expert=tp.rank * y.shape[1])
+        return embed_out(C.reduce_out(out, tp)), routes.aux.mean()

@@ -38,6 +38,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import spans
 from ..device import resolve_device
 from ..kernels.ops import kernel_opts
 from ..parallelism import collectives as C
@@ -204,19 +205,25 @@ def _block_apply(p, x, *, kind, cfg: ModelConfig, cache=None, positions=None,
                             rows=rows)
     else:
         window = cfg.window_size if kind == SWA else 0
-        y, nc = attention(p["mixer"], h, cfg, window=window, cache=cache,
-                          positions=positions, pos=pos,
-                          attn_fn=opts.get("attn_fn"), return_cache=prefill,
-                          place=None if place is None else place["k"],
-                          rows=rows)
+        with (spans.span("attention", h) if cache is None
+              else spans.NULL) as out:
+            y, nc = attention(p["mixer"], h, cfg, window=window,
+                              cache=cache, positions=positions, pos=pos,
+                              attn_fn=opts.get("attn_fn"),
+                              return_cache=prefill,
+                              place=None if place is None else place["k"],
+                              rows=rows)
+            y = out(y)
     x = x + y
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in p:
         h2 = rmsnorm(p["ffn"]["norm"], x, cfg.norm_eps)
-        if cfg.is_moe:
-            y2, aux = moe_ffn(p["ffn"], h2, cfg)
-        else:
-            y2 = ffn(p["ffn"], h2)
+        with spans.span("ffn", h2) as out:
+            if cfg.is_moe:
+                y2, aux = moe_ffn(p["ffn"], h2, cfg)
+            else:
+                y2 = ffn(p["ffn"], h2)
+            y2 = out(y2)
         x = x + y2
     return x, nc, aux
 
@@ -368,8 +375,9 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any], *,
     opts = _resolve_opts(params, opts)
     x = embed_inputs(params, cfg, batch)
     x, _, aux = _run_groups(params, cfg, x, opts=opts, remat=remat)
-    x = rmsnorm(use(params["final_norm"]), x, cfg.norm_eps)
-    return unembed(params, cfg, x), aux
+    with spans.span("head", x) as out:
+        x = rmsnorm(use(params["final_norm"]), x, cfg.norm_eps)
+        return out(unembed(params, cfg, x)), aux
 
 
 def prefill_forward(params, cfg: ModelConfig, batch: Dict[str, Any], *,

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import spans
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.params import (init_params, tree_leaves_with_paths, tree_map,
@@ -281,17 +282,18 @@ class BuiltJob:
             with self._gathering(_leaves(leaves), saved=not self.plan.remat):
                 return self._loss(leaves, batch)
 
-        with axis_rules(self.rules, self.mesh, self.sizes):
-            grads, metrics = _grads(loss, params, batch)
-        g = self._reduce(_leaves(grads))
-        if self.batch_axes:
-            # the mean of the ranks' metrics over the batch
-            axis = self.mesh.axis(self.batch_axes)
-            both = C.all_reduce(torch.stack([metrics["loss"],
-                                             metrics["aux_loss"]]),
-                                axis) / axis.size
-            metrics = {"loss": both[0], "aux_loss": both[1]}
-        return self._update(params, opt_state, g, metrics)
+        with spans.span("step"):
+            with axis_rules(self.rules, self.mesh, self.sizes):
+                grads, metrics = _grads(loss, params, batch)
+            g = self._reduce(_leaves(grads))
+            if self.batch_axes:
+                # the mean of the ranks' metrics over the batch
+                axis = self.mesh.axis(self.batch_axes)
+                both = C.all_reduce(torch.stack([metrics["loss"],
+                                                 metrics["aux_loss"]]),
+                                    axis) / axis.size
+                metrics = {"loss": both[0], "aux_loss": both[1]}
+            return self._update(params, opt_state, g, metrics)
 
     def _reduce(self, g: List[torch.Tensor]) -> List[torch.Tensor]:
         """The mean over the batch of the ranks' gradients, in place (a
@@ -314,17 +316,19 @@ class BuiltJob:
         return g
 
     def _gpipe_step(self, params, opt_state, batch):
-        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        ce, aux = pipeline_grads(self.cfg, self.plan.microbatches,
-                                 self.axis, leaves, batch)
-        g = [t.grad if t.grad is not None else torch.zeros_like(t)
-             for t in _leaves(leaves)]
-        # a replicated leaf's gradient is the sum of its stages' parts
-        C.all_reduce_buckets([t for t, axes in zip(g, self._cut_axes)
-                              if not axes], self.axis)
-        both = C.all_reduce(torch.stack([ce, aux]), self.axis)
-        return self._update(params, opt_state, g,
-                            {"loss": both[0], "aux_loss": both[1]})
+        with spans.span("step"):
+            leaves = tree_map(lambda p: p.detach().requires_grad_(True),
+                              params)
+            ce, aux = pipeline_grads(self.cfg, self.plan.microbatches,
+                                     self.axis, leaves, batch)
+            g = [t.grad if t.grad is not None else torch.zeros_like(t)
+                 for t in _leaves(leaves)]
+            # a replicated leaf's gradient is the sum of its stages' parts
+            C.all_reduce_buckets([t for t, axes in zip(g, self._cut_axes)
+                                  if not axes], self.axis)
+            both = C.all_reduce(torch.stack([ce, aux]), self.axis)
+            return self._update(params, opt_state, g,
+                                {"loss": both[0], "aux_loss": both[1]})
 
     def _update(self, params, opt_state, g, metrics):
         grads = _rebuild(params, g)

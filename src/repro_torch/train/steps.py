@@ -16,6 +16,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from .. import spans
 from ..models.config import ModelConfig
 from ..parallelism import collectives as C
 from ..parallelism.context import tp_for
@@ -68,7 +69,9 @@ def lm_loss(params, cfg: ModelConfig, batch, *, opts=None, remat=False):
     """Mean next-token cross-entropy (+ MoE aux).  Returns (loss, metrics).
     ``opts=None`` is the plain path (``{}``)."""
     logits, aux = forward(params, cfg, batch, opts=opts or {}, remat=remat)
-    loss, metrics = _ce_from_logits(cfg, logits, batch)
+    with spans.span("head", logits) as out:
+        loss, metrics = _ce_from_logits(cfg, logits, batch)
+        loss = out(loss)
     metrics["aux_loss"] = aux
     return loss + aux, metrics
 
@@ -103,6 +106,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
             return lm_loss(params, cfg, batch, opts=opts, remat=remat)
 
     def train_step(params, opt_state, batch):
+        with spans.span("step"):
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         if microbatches == 1:
             grads, metrics = _grads(loss_fn, params, batch)
         else:
