@@ -38,8 +38,13 @@ The time loops of the port's models are the counterparts of the
 reference's ``lax.scan`` calls, and run through ``models.scan.scan``:
 the sLSTM recurrence (``models.recurrent.slstm_block``), the
 batched-gradient sLSTM scan's forward, its recompute and its reverse
-loop (``models.slstm_scan``), the chunked mLSTM's chunk loop and both
-loops of ``blockwise_attention`` (``models.blockwise``).  The trip
+loop (``models.slstm_scan``), the chunked mLSTM's chunk loop and the
+kv loops of ``blockwise_attention`` (``models.blockwise``).  There a q
+block visits only the kv blocks it sees, so q blocks visit different
+numbers of them: its q loop is a plain loop, every trip run, and each
+q trip's kv blocks run as three loops of trips alike (the masked blocks
+at the window's edge, the unmasked run, the masked blocks on the
+diagonal), each charged as below.  The trip
 count is the loop's own ``n``, known before it runs.  On meta tensors
 the counter (:class:`_MetaCounter`) counts a loop of n >= 5 trips from
 four of them: the first (its carry comes from outside and needs no

@@ -12,9 +12,29 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import spans
 from .scan import scan
 
 NEG_INF = -1e30
+
+
+def _kv_blocks(q_lo: int, q_hi: int, window: int, kv_chunk: int):
+    """The kv blocks that rows ``q_lo .. q_hi`` see, as ``(first, lo, hi,
+    end)``: blocks ``first .. lo-1`` cross the window's edge, ``lo ..
+    hi-1`` lie wholly inside the window and below the diagonal, and
+    ``hi .. end-1`` cross the diagonal.  A block crosses the diagonal where its
+    last key lies past ``q_lo`` and the window's edge where its first key
+    lies ``window`` or more before ``q_hi``; the first set is a suffix of
+    the blocks seen and the second a prefix, so the unmasked blocks are
+    the run between them (none: every block counts as leading)."""
+    first = max(0, q_lo - window + 1) // kv_chunk if window else 0
+    end = q_hi // kv_chunk + 1
+    plain = [j for j in range(first, end)
+             if (j + 1) * kv_chunk - 1 <= q_lo
+             and not (window and q_hi - j * kv_chunk >= window)]
+    if not plain:
+        return first, end, end, end
+    return first, plain[0], plain[-1] + 1, end
 
 
 def blockwise_attention(q, k, v, *, window: int = 0, q_chunk: int = 512,
@@ -23,6 +43,21 @@ def blockwise_attention(q, k, v, *, window: int = 0, q_chunk: int = 512,
     softmax over kv chunks; never materializes (S, S).
 
     q: (B, S, H, D) pre-scaled; k, v: (B, S, Kv, D).  Returns (B, S, H, D).
+
+    A q block visits only the kv blocks that hold a key one of its rows
+    sees (``_kv_blocks``), and masks only those that cross the causal
+    diagonal or the window's edge.  A block past the diagonal would add
+    ``p = 0`` under ``corr = 1``, and one before the window's edge a sum
+    that the first seen block multiplies by ``corr = 0``: skipping them
+    leaves every output and gradient bit for bit as it was.  Under
+    :func:`spans.counting` the forward counts the pairs visited
+    (``attention.blocks_run``) and all pairs (``attention.blocks``).
+
+    The q blocks run as a plain loop, since they visit different numbers
+    of kv blocks; each visits its kv blocks as three ``scan`` loops in
+    order (the window's edge, the unmasked run, the diagonal), each of
+    trips alike, so the step analyzer charges a loop of 5 or more trips
+    from four of them (``models.scan``).
     """
     b, s, h, d = q.shape
     kvh = k.shape[2]
@@ -38,37 +73,56 @@ def blockwise_attention(q, k, v, *, window: int = 0, q_chunk: int = 512,
     qr = q.reshape(b, nq, q_chunk, kvh, qpk, d).permute(1, 0, 3, 4, 2, 5)
     kr = k.reshape(b, nk, kv_chunk, kvh, d).permute(1, 0, 3, 2, 4)
     vr = v.reshape(b, nk, kv_chunk, kvh, d).permute(1, 0, 3, 2, 4)
+    blocks = [_kv_blocks(qi * q_chunk, (qi + 1) * q_chunk - 1, window,
+                         kv_chunk) for qi in range(nq)]
+    if spans.counting():
+        spans.count("attention.blocks_run",
+                    sum(end - first for first, _, _, end in blocks))
+        spans.count("attention.blocks", nq * nk)
 
-    def q_trip(qi, _):
+    def q_trip(qi):
         qc = qr[qi]
         q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
 
-        def kv_trip(kj, carry):
-            m, l, acc = carry
-            k_pos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
-            scores = torch.einsum("bkqcd,bked->bkqce", qc, kr[kj]).float()
-            mask = k_pos[None, :] <= q_pos[:, None]
-            if window:
-                mask &= (q_pos[:, None] - k_pos[None, :]) < window
-            scores = torch.where(mask, scores,
-                                 torch.tensor(NEG_INF, device=dev))
-            m_new = torch.maximum(m, scores.amax(-1))
-            p = torch.exp(scores - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bkqce,bked->bkqcd", p, vr[kj].float())
-            return (m_new, l, acc), None
+        def kv_trips(start, masked):
+            def kv_trip(t, carry):
+                kj = start + t
+                m, l, acc = carry
+                scores = torch.einsum("bkqcd,bked->bkqce", qc,
+                                      kr[kj]).float()
+                if masked:
+                    k_pos = kj * kv_chunk + torch.arange(kv_chunk,
+                                                         device=dev)
+                    mask = k_pos[None, :] <= q_pos[:, None]
+                    if window:
+                        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+                    scores = torch.where(mask, scores, NEG_INF)
+                m_new = torch.maximum(m, scores.amax(-1))
+                p = torch.exp(scores - m_new[..., None])
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum(
+                    "bkqce,bked->bkqcd", p, vr[kj].float())
+                return (m_new, l, acc), None
+            return kv_trip
 
-        init = (torch.full((b, kvh, qpk, q_chunk), NEG_INF, device=dev),
-                torch.zeros((b, kvh, qpk, q_chunk), device=dev),
-                torch.zeros((b, kvh, qpk, q_chunk, d), device=dev))
-        (_, l, acc), _ = scan(kv_trip, init, nk, name="attention_kv")
+        first, lo, hi, end = blocks[qi]
+        carry = (torch.full((b, kvh, qpk, q_chunk), NEG_INF, device=dev),
+                 torch.zeros((b, kvh, qpk, q_chunk), device=dev),
+                 torch.zeros((b, kvh, qpk, q_chunk, d), device=dev))
+        for start, stop, masked, name in (
+                (first, lo, True, "attention_kv_window_edge"),
+                (lo, hi, False, "attention_kv"),
+                (hi, end, True, "attention_kv_diagonal")):
+            if stop > start:
+                carry, _ = scan(kv_trips(start, masked), carry,
+                                stop - start, name=name)
+        _, l, acc = carry
         out = acc / torch.clamp(l, min=1e-30)[..., None]
-        return (), out.to(q.dtype)
+        return out.to(q.dtype)
 
     # (nq, B, Kv, Q, qc, D) -> (B, S, H, D)
-    _, outs = scan(q_trip, (), nq, name="attention_q", stack=("stack", 0))
+    outs = torch.stack([q_trip(qi) for qi in range(nq)], 0)
     return outs.permute(1, 0, 4, 2, 3, 5).reshape(b, s, h, d)
 
 

@@ -18,9 +18,11 @@ exactly, and the same peak of live bytes within ``PEAK_ATOL``:
 - ``mlstm_chunked`` at S 1024 (chunk 256, four chunks: every trip runs)
   and at chunk 64 (16 chunks: charged), with and without autograd;
 - ``blockwise_attention`` at S 2048 with reduced gemma3-4b's heads,
-  window 0 and 1024, at its 512-wide chunks (every trip runs) and at
-  256-wide ones (8 x 8: both loops charged, the inner inside the outer),
-  with and without autograd.
+  window 0, 1024 and 300, at its 512-wide chunks (every trip runs), at
+  256-wide ones (8 x 8: the unmasked kv blocks charged), at unequal
+  chunks, and at 512 x 64 (the masked kv blocks charged too), with and
+  without autograd; its flops are those of the loop over every block
+  times the share of block pairs its counters report visited.
 
 The number of ops the analyzer dispatches for the reduced xLSTM train
 step is the same at S 1024 and S 2048 (both take the chunked mLSTM), and
@@ -30,8 +32,11 @@ as one group.
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import _torch_port  # noqa: F401  (thread cap)
+from _torch_all_blocks import all_blocks_attention
+from repro_torch import spans
 from repro_torch.configs import concrete_batch, get_config
 from repro_torch.launch import step_analysis as S
 from repro_torch.models.blockwise import blockwise_attention, mlstm_chunked
@@ -169,18 +174,43 @@ def test_the_chunked_mlstm_counts_as_its_full_replay(chunk, grad):
     held(replay(fn, args), analysis(fn, shapes(args)))
 
 
+def _block_use(fn, args) -> tuple:
+    """The counters ``attention.blocks_run`` and ``attention.blocks`` of
+    ``fn(*args)`` under the CPU profiler."""
+    spans.record()                # the next count opens a fresh window
+    with profile(activities=[ProfilerActivity.CPU]):
+        fn(*args)
+    got = spans.record().counters
+    return got["attention.blocks_run"], got["attention.blocks"]
+
+
 @pytest.mark.parametrize("grad", [True, False], ids=["train", "prefill"])
-@pytest.mark.parametrize("chunks", [512, 256])
-@pytest.mark.parametrize("window", [0, 1024])
+@pytest.mark.parametrize("chunks", [512, 256, (256, 512), (512, 256),
+                                    (512, 64)],
+                         ids=lambda c: str(c) if isinstance(c, int)
+                         else f"{c[0]}x{c[1]}")
+@pytest.mark.parametrize("window", [0, 1024, 300])
 def test_blockwise_attention_counts_as_its_full_replay(window, chunks,
                                                       grad):
+    """At 512 x 512 every loop runs whole; elsewhere the unmasked run of
+    kv blocks is charged, and at 512 x 64 the masked blocks on the
+    diagonal (and at window 300 those at the window's edge) too.  The
+    flops are the all-blocks loop's times the share of pairs the
+    counters say were visited."""
     cfg = get_config("gemma3-4b").reduced()
     h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    qc, kc = (chunks, chunks) if isinstance(chunks, int) else chunks
     args = _tensors(1, (1, 2048, h, d), (1, 2048, kv, d), (1, 2048, kv, d))
-    attn = lambda q, k, v: blockwise_attention(
-        q, k, v, window=window, q_chunk=chunks, kv_chunk=chunks)
-    fn = _with_grad(attn) if grad else _no_grad(attn)
-    held(replay(fn, args), analysis(fn, shapes(args)))
+    kw = dict(window=window, q_chunk=qc, kv_chunk=kc)
+    attn = lambda q, k, v: blockwise_attention(q, k, v, **kw)
+    every = lambda q, k, v: all_blocks_attention(q, k, v, **kw)
+    wrap = _with_grad if grad else _no_grad
+    meta = analysis(wrap(attn), shapes(args))
+    held(replay(wrap(attn), args), meta)
+    run, blocks = _block_use(_no_grad(attn), args)
+    assert blocks == (2048 // qc) * (2048 // kc) and 0 < run < blocks
+    full = analysis(wrap(every), shapes(args))
+    assert meta["flops"] * blocks == full["flops"] * run
 
 
 def test_a_train_steps_dispatched_ops_do_not_grow_with_the_length():

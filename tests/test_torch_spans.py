@@ -3,7 +3,8 @@ CPU: nothing recorded and no hook without a profiler, the same step
 bit for bit with one; under a profiler, FUNCTION-scope host ranges
 (a user-scope range would be mirrored onto the card as a device
 annotation), every block's forward, recompute and backward
-occurrences, and the MoE counters against a direct count."""
+occurrences, the MoE counters against a direct count, and the
+attention block counters."""
 import collections
 
 import numpy as np
@@ -154,3 +155,25 @@ def test_record_holds_the_latest_window_only():
     assert got["attention", spans.FORWARD] == got["attention",
                                                   spans.BACKWARD] > 0
     assert "moe.route" not in {o.name for o in first.spans}
+
+
+@pytest.mark.parametrize("window", [0, 1000])
+def test_attention_block_counters(window):
+    """One blockwise forward at S 4096, chunks 512, under the profiler:
+    36 of 64 block pairs visited without a window, 21 with one; the
+    recompute of a checkpointed forward inside its backward adds
+    nothing."""
+    from repro_torch.models.blockwise import blockwise_attention
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 4096, n, 8), generator=g, requires_grad=True)
+               for n in (2, 1, 1))
+    attn = lambda *a: blockwise_attention(*a, window=window)
+    spans.record()
+    with profile(activities=[ProfilerActivity.CPU]):
+        torch.utils.checkpoint.checkpoint(attn, q, k, v,
+                                          use_reentrant=False).sum().backward()
+    got = spans.record().counters
+    # window 1000: q blocks 0, 1 and 2 see 1, 2 and 3 kv blocks, the
+    # other five 3 each
+    assert got["attention.blocks"] == 64
+    assert got["attention.blocks_run"] == (21 if window else 36)
